@@ -1,0 +1,6 @@
+// Names for the cudaError_t codes the launchers return.
+#include <cuda_runtime.h>
+
+extern "C" const char* rt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
