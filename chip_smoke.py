@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's checkpoint path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's checkpoint and serving paths on one GPU
+and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the preconditioner kernels from ``src/repro_torch/kernels/csrc``,
-then runs, failing on the first error:
+It builds the port's kernels from ``src/repro_torch/kernels/csrc``, then
+runs, failing on the first error:
 
-1. every kernel against its plain PyTorch version on the card (byte-equal),
-   over itemsizes 1/2/4/8 and ragged sizes up to a 100 MB basket, with
-   times beside the memory-bandwidth bound and one-call PyTorch yardsticks;
+1. every kernel against its plain PyTorch version on the card: the six
+   preconditioners byte-equal over itemsizes 1/2/4/8 and ragged sizes up to
+   a 100 MB basket, and qpack/qunpack bit-equal over R x C shapes, types,
+   zero rows, .5 ties and the serve path's shapes, with times beside the
+   memory-bandwidth bound and one-call PyTorch yardsticks;
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
    equal bytes from CPU tensors, and the restore is bitwise;
 4. a qwen3-8b train state at full width, depth 1 (params f32, bf16 AdamW
-   moments): save and restore through ``CheckpointManager``, bitwise.
+   moments): save and restore through ``CheckpointManager``, bitwise;
+5. rwkv6-1.6b served at full width through ``repro_torch.launch.serve``
+   with the int8 compressed TP reduction on over a one-rank NCCL group:
+   8 requests, greedy; one full-width compressed projection against
+   ``torch.matmul``, and the reduced model on the card against the port on
+   the CPU.
 
-Launch counters are zeroed just before phase 3 and read after phase 4.  The
-second-to-last line is the kernels' JSON record, the last line the device
-record.  Without a CUDA device it prints no result and exits 1.
+Launch counters are zeroed just before phase 3 and read after phase 4 (the
+checkpoint path), and zeroed again just before phase 5's serve run and read
+after it (the serve path).  The second-to-last line is the kernels' JSON
+record, the last line the device record.  Without a CUDA device it prints
+no result and exits 1.
 """
 
 import hashlib
@@ -32,6 +42,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+CARDS_USED = 1                     # every phase runs on cuda:0
+
+# phase 5: the serve run, as ``python -m repro_torch.launch.serve`` takes it
+SERVE_ARGS = ["--arch", "rwkv6-1.6b", "--requests", "8", "--prompt-len", "64",
+              "--slots", "4", "--max-len", "128", "--max-new", "16"]
+SERVE_D_MODEL = 2048
 
 
 def log(msg: str) -> None:
@@ -82,6 +98,8 @@ REPLACES = {
     "byteunshuffle": "src/repro/kernels/byteshuffle.py:55",
     "delta": "src/repro/kernels/delta.py:44",
     "undelta": "src/repro/kernels/delta.py:61",
+    "qpack": "src/repro/kernels/qpack.py:51",
+    "qunpack": "src/repro/kernels/qpack.py:75",
 }
 SOURCE = {
     "bitshuffle": "src/repro_torch/kernels/csrc/bitshuffle.cu",
@@ -90,6 +108,8 @@ SOURCE = {
     "byteunshuffle": "src/repro_torch/kernels/csrc/byteshuffle.cu",
     "delta": "src/repro_torch/kernels/csrc/delta.cu",
     "undelta": "src/repro_torch/kernels/csrc/delta.cu",
+    "qpack": "src/repro_torch/kernels/csrc/qpack.cu",
+    "qunpack": "src/repro_torch/kernels/csrc/qpack.cu",
 }
 # the largest basket the checkpoint path hands each kernel: qwen3-8b's
 # ffn.w_gate at depth 1 (f32: bitshuffle4; its bf16 moments: shuffle2) and
@@ -213,6 +233,132 @@ def phase_kernels(torch, K, ref):
                              "itemsize": itemsize, "bytes": nbytes,
                              "d2d_copy_ms": copy_ms})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 1, continued: qpack / qunpack vs their plain versions
+# ---------------------------------------------------------------------------
+
+def _serve_rows():
+    """(R, C) the serve phase hands qpack/qunpack: a prefill of every slot
+    at the prompt length, then one token per slot per decode step."""
+    a = dict(zip(SERVE_ARGS[::2], SERVE_ARGS[1::2]))
+    slots, plen = int(a["--slots"]), int(a["--prompt-len"])
+    return [(slots * plen, SERVE_D_MODEL), (slots, SERVE_D_MODEL)]
+
+
+def _quant_input(torch, g, rows, cols, dtype, kind):
+    """A (rows, cols) float32 matrix of one kind, cast to ``dtype``."""
+    x = torch.randn((rows, cols), generator=g, device="cuda") * 3
+    if kind == "zeros":                    # zero rows among the others
+        x[::3] = 0.0
+    elif kind == "ties":
+        # amax 127 * 2**e makes the scale 2**e exactly: x / scale = k + 0.5
+        k = torch.randint(-127, 127, (rows, cols), generator=g, device="cuda")
+        e = torch.randint(-6, 6, (rows, 1), generator=g, device="cuda").float()
+        x = (k.float() + 0.5) * torch.exp2(e)
+        x[:, 0] = 127.0 * torch.exp2(e[:, 0])
+    elif kind == "halfway":
+        # x / scale within an ulp of k + 0.5 for a scale that is no power of 2
+        amax = torch.rand((rows, 1), generator=g, device="cuda") * 10 + 0.1
+        k = torch.randint(-126, 126, (rows, cols), generator=g, device="cuda")
+        x = (k.float() + 0.5) * (amax * (1.0 / 127.0))
+        x[:, :1] = amax
+    return x.to(dtype)
+
+
+def phase_quant_kernels(torch, K, ref):
+    """qpack/qunpack bit-equal to their plain versions on the card, then
+    timed at one prefill_32k sequence of rwkv6's width and at the serve
+    path's decode shape."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    types = (torch.float32, torch.bfloat16)
+    shapes = [(r, c) for r in (1, 4, 256, 32768) for c in (1, 7, 2047, 2048, 7168)]
+    shapes += _serve_rows()
+    checked = 0
+    for rows, cols in shapes:
+        for kind in ("random", "zeros", "ties", "halfway"):
+            if kind in ("ties", "halfway") and (cols < 2 or rows * cols > 1 << 24):
+                continue
+            for dtype in types:
+                x = _quant_input(torch, g, rows, cols, dtype, kind)
+                for zero_scale in (0.0, 1.0):
+                    (q, s), (rq, rs) = K["qpack"](x, zero_scale), ref.qpack(x, zero_scale)
+                    torch.cuda.synchronize()
+                    if not (same_bits(q, rq) and same_bits(s, rs)):
+                        raise AssertionError(
+                            f"qpack {rows}x{cols} {dtype} {kind} zero_scale="
+                            f"{zero_scale}: differs from the plain version")
+                    checked += 1
+                for k in (1, 3):
+                    qk = q.expand(k, rows, cols).contiguous()
+                    if k > 1:
+                        qk[1:] = torch.randint(-127, 128, (k - 1, rows, cols), generator=g,
+                                               device="cuda", dtype=torch.int8)
+                    sk = torch.cat([s[None], torch.rand((k - 1, rows, 1), generator=g,
+                                                        device="cuda")])
+                    for out in types:
+                        got, want = K["qunpack"](qk, sk, out), ref.qunpack(qk, sk, out)
+                        torch.cuda.synchronize()
+                        if not same_bits(got, want):
+                            raise AssertionError(f"qunpack k={k} {rows}x{cols} {out} "
+                                                 f"{kind}: differs from the plain version")
+                        checked += 1
+    log(f"phase 1: {checked} qpack/qunpack runs bit-equal to their plain versions "
+        f"(R x C over {{1, 4, 256, 32768}} x {{1, 7, 2047, 2048, 7168}} and the "
+        f"serve path's {_serve_rows()}; f32/bf16 in and out; k = 1, 3; random, "
+        "zero, tie and halfway rows; zero-row scale 0 and 1)")
+
+    rows_out = []
+    log("kernel    shape          ms        GB/s    bound_ms  plain_ms  library_ms")
+    for name in ("qpack", "qunpack"):
+        row = {"name": name, "route": "cuda", "source": SOURCE[name],
+               "replaces": REPLACES[name], "launches": 0, "bound_by": "bytes"}
+        for label, (rows, cols) in (("main", (32768, SERVE_D_MODEL)),
+                                    ("decode", _serve_rows()[1])):
+            x = torch.randn((rows, cols), generator=g, device="cuda")
+            q, s = K["qpack"](x, 1.0)
+            if name == "qpack":
+                def kern(): return K["qpack"](x, 1.0)
+                def plain(): return ref.qpack(x, 1.0)
+                lib = None                  # no single PyTorch call quantizes
+                nbytes = 5 * rows * cols + 4 * rows
+            else:
+                qk, sk = q[None], s[None]
+                def kern(): return K["qunpack"](qk, sk, torch.bfloat16)
+                def plain(): return ref.qunpack(qk, sk, torch.bfloat16)
+                def lib(): return torch.mul(q, s)
+                nbytes = 3 * rows * cols + 4 * rows
+            reps = 100 if label == "main" else 1000
+            ms = cuda_ms(kern, reps)
+            plain_ms = cuda_ms(plain, max(reps // 10, 3))
+            lib_ms = cuda_ms(lib, reps) if lib is not None else None
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if name == "qpack":
+                err = max((got[0].int() - want[0].int()).abs().max().item(),
+                          (got[1] - want[1]).abs().max().item())
+                same = same_bits(got[0], want[0]) and same_bits(got[1], want[1])
+            else:
+                err = (got.float() - want.float()).abs().max().item()
+                same = same_bits(got, want)
+            if not same:
+                raise AssertionError(f"{name} {rows}x{cols} [{label}]: differs "
+                                     f"(max abs err {err})")
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
+            log(f"{name:8s}  {rows:6d}x{cols:<6d} {ms:8.4f}  {nbytes / ms / 1e6:7.1f}  "
+                f"{bound_ms:8.4f}  {plain_ms:8.4f}  {lib_txt:>10}   [{label}]")
+            if label == "main":
+                row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, library_ms=lib_ms, shape=[rows, cols],
+                           dtype="f32 in" if name == "qpack" else "bf16 out, k=1")
+            else:
+                row.update(decode_shape=[rows, cols], decode_ms=ms,
+                           decode_plain_ms=plain_ms, decode_bound_ms=bound_ms,
+                           decode_library_ms=lib_ms)
+        rows_out.append(row)
+    return rows_out
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +586,215 @@ def precond_share(torch, np, host, events_save_s):
     return {"device_s": dev_s, "host_numpy_s": host_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: rwkv6-1.6b served at full width, compressed TP on
+# ---------------------------------------------------------------------------
+
+def _serve_once(torch, launch, model, params, args, cfg, group, compressed_tp):
+    """One ``launch.serve`` run; returns (outputs, wall s, serve.* spans)."""
+    from repro_torch import obs
+    from repro_torch.models import rwkv
+    from repro_torch.parallel import activation_context
+    rwkv.PERF_FLAGS["compressed_tp"] = compressed_tp
+    obs.trace.drain()
+    try:
+        with activation_context(group):
+            out, dt = launch.serve(model, params, args, cfg.vocab)
+        torch.cuda.synchronize()
+    finally:
+        rwkv.PERF_FLAGS["compressed_tp"] = False
+    spans = [e for e in obs.trace.drain() if e["name"].startswith("serve.")]
+    return out, dt, spans
+
+
+def _span_ms(spans, name):
+    """(mean, median, count) of the named spans' durations in ms."""
+    durs = sorted(e["dur"] / 1e3 for e in spans if e["name"] == name)
+    return sum(durs) / len(durs), durs[len(durs) // 2], len(durs)
+
+
+def _profile_window(torch, model, params, group, tokens):
+    """One prefill and three decode steps, compressed TP on, under
+    torch.profiler: wall time, device busy time (kernels on the one stream,
+    summed) and the kernels that take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import rwkv
+    from repro_torch.parallel import activation_context
+
+    def window():
+        logits, cache = model.prefill(params, {"tokens": tokens}, 128)
+        for i in range(3):
+            logits, cache = model.decode_step(params, cache,
+                                              logits.argmax(-1)[:, None],
+                                              tokens.shape[1] + i)
+        torch.cuda.synchronize()
+
+    rwkv.PERF_FLAGS["compressed_tp"] = True
+    try:
+        with torch.no_grad(), activation_context(group):
+            window()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                window()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rwkv.PERF_FLAGS["compressed_tp"] = False
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    quant_ms = sum(e.self_device_time_total for e in kernels
+                   if "qpack_kernel" in e.key or "qunpack_kernel" in e.key) / 1e3
+    launches = sum(e.count for e in kernels)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "kernel_launches": launches, "quant_kernels_ms": quant_ms,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               for e in top}}
+
+
+def _small_model_agrees(torch, cfg_name, group):
+    """The reduced model on the card (kernels, NCCL) against the port on the
+    CPU (plain versions, gloo), compressed TP on, same weights."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model, rwkv
+    from repro_torch.parallel import activation_context
+    model = Model(reduced(get_config(cfg_name)))
+    params = model.init(torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    on_card = _to(torch, params, "cuda")
+    tokens = torch.randint(2, model.cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    gloo = dist.new_group([0], backend="gloo")
+    rwkv.PERF_FLAGS["compressed_tp"] = True
+    try:
+        with torch.no_grad():
+            with activation_context(group):
+                lg, cache = model.prefill(on_card, {"tokens": tokens.cuda()}, 128)
+                lg2, _ = model.decode_step(on_card, cache, lg.argmax(-1)[:, None], 64)
+            with activation_context(gloo):
+                rl, rcache = model.prefill(params, {"tokens": tokens}, 128)
+                rl2, _ = model.decode_step(params, rcache, lg.argmax(-1)[:, None].cpu(), 64)
+    finally:
+        rwkv.PERF_FLAGS["compressed_tp"] = False
+        dist.destroy_process_group(gloo)
+    errs = []
+    for got, want in ((lg, rl), (lg2, rl2)):
+        got = got.float().cpu()
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        errs.append(((got - want).norm() / want.norm()).item())
+    return errs
+
+
+def _to(torch, tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(torch, v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_serve(torch, ops):
+    """rwkv6-1.6b at full width through launch.serve, compressed TP on over
+    a one-rank NCCL group.  Returns (summary, launch counts of the run)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.specs import tree_paths
+    from repro_torch.parallel import compressed, one_rank_group
+    args = launch.parse_args(SERVE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = launch.build(args)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_paths(params).values())
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == (24, 2048, 7168, 65536)
+    log(f"phase 5: {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params / 1e9:.3f} B params, "
+        f"{n_params * 2 / 1e9:.2f} GB bf16 on the card (made in "
+        f"{time.perf_counter() - t0:.2f} s)")
+    group = one_rank_group("nccl")
+
+    # warm-up, not timed: cuBLAS, the allocator and NCCL's communicator
+    warm = launch.parse_args(SERVE_ARGS + ["--requests", str(args.slots),
+                                           "--max-new", "2"])
+    _serve_once(torch, launch, model, params, warm, cfg, group, True)
+    # compressed TP off: the tokens to compare with
+    plain_out, plain_dt, plain_spans = _serve_once(torch, launch, model, params,
+                                                   args, cfg, group, False)
+    # compressed TP on, the main path; layer 0's two projections recorded
+    seen = []
+    inner = compressed.rowparallel_einsum_compressed
+
+    def record(y, w, out_dtype=None):
+        if len(seen) < 2:
+            seen.append((y, w))
+        return inner(y, w, out_dtype)
+
+    compressed.rowparallel_einsum_compressed = record
+    try:
+        ops.reset_launch_counts()                      # the serve path starts
+        out, dt, spans = _serve_once(torch, launch, model, params, args, cfg,
+                                     group, True)
+        counts = ops.launch_counts()                   # the serve path ends
+    finally:
+        compressed.rowparallel_einsum_compressed = inner
+    n_req, max_new = int(args.requests), int(args.max_new)
+    assert sorted(out) == list(range(n_req)), sorted(out)
+    for toks in out.values():
+        assert len(toks) == max_new and ((toks >= 0) & (toks < cfg.vocab)).all()
+    n_tok = sum(len(v) for v in out.values())
+    prefill_ms, prefill_med, n_prefill = _span_ms(spans, "serve.prefill")
+    decode_ms, decode_med, n_decode = _span_ms(spans, "serve.decode_step")
+    forwards = n_prefill + n_decode
+    per_forward = 2 * cfg.n_layers
+    log(f"phase 5: compressed TP on: {len(out)} requests, {n_tok} tokens in "
+        f"{dt:.3f} s ({n_tok / dt:.1f} tok/s); {n_prefill} prefills of "
+        f"{prefill_ms:.2f} ms mean, {n_decode} decode steps of {decode_ms:.2f} ms "
+        f"mean ({decode_med:.2f} median); launches {{qpack: {counts['qpack']}, "
+        f"qunpack: {counts['qunpack']}}} over {forwards} forward calls")
+    for name in ("qpack", "qunpack"):
+        assert counts[name] == per_forward * forwards, \
+            f"{name}: {counts[name]} launches, want {per_forward} x {forwards}"
+    p_prefill_ms, _, _ = _span_ms(plain_spans, "serve.prefill")
+    p_decode_ms, p_decode_med, _ = _span_ms(plain_spans, "serve.decode_step")
+    agree = sum(int((out[r] == plain_out[r]).sum()) for r in out) / n_tok
+    log(f"phase 5: compressed TP off: {len(plain_out)} requests in {plain_dt:.3f} s "
+        f"({n_tok / plain_dt:.1f} tok/s); prefill {p_prefill_ms:.2f} ms, decode step "
+        f"{p_decode_ms:.2f} ms ({p_decode_med:.2f} median); greedy tokens equal to "
+        f"the compressed run's: {100 * agree:.1f} %")
+
+    # one full-width compressed projection of each kind against torch.matmul
+    from repro_torch.parallel import activation_context
+    proj = {}
+    with torch.no_grad(), activation_context(group):
+        for label, (y, w) in zip(("time-mix w_o", "channel-mix w_v"), seen):
+            got = compressed.rowparallel_einsum_compressed(y, w).float()
+            want = torch.matmul(y.float(), w.float())
+            rel = ((got - want).norm() / want.norm()).item()
+            assert torch.isfinite(got).all() and rel < 0.02, (label, rel)
+            proj[label] = {"y": list(y.shape), "w": list(w.shape), "rel_err": rel}
+    log(f"phase 5: layer 0 projections on the prefill's inputs, compressed vs "
+        f"torch.matmul, relative Frobenius error (bound 0.02): {proj}")
+    prompts = torch.randint(2, cfg.vocab, (int(args.slots), int(args.prompt_len)),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+    prof = _profile_window(torch, model, params, group, prompts)
+    log(f"phase 5: profiled window (1 prefill + 3 decode steps, compressed on): "
+        f"{prof}")
+    small = _small_model_agrees(torch, args.arch, group)
+    assert max(small) < 0.02, small
+    log(f"phase 5: reduced {args.arch} on the card vs the port on the CPU, "
+        f"compressed on: prefill / decode logits relative error {small}")
+    summary = {"requests": len(out), "tokens": n_tok, "wall_s": dt,
+               "tok_s": n_tok / dt, "prefill_ms": prefill_ms, "prefills": n_prefill,
+               "decode_step_ms": decode_ms, "decode_step_median_ms": decode_med,
+               "decode_steps": n_decode,
+               "plain": {"wall_s": plain_dt, "tok_s": n_tok / plain_dt,
+                         "prefill_ms": p_prefill_ms, "decode_step_ms": p_decode_ms,
+                         "decode_step_median_ms": p_decode_med},
+               "greedy_agreement": agree, "projections": proj, "profile": prof,
+               "small_model_rel_err": small, "params": n_params,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return summary, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -463,7 +818,8 @@ def main() -> int:
     workers = os.cpu_count() or 1
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        rows = phase_kernels(torch, ops.KERNELS, ref)
+        rows = phase_kernels(torch, ops.PRECOND_KERNELS, ref)
+        rows += phase_quant_kernels(torch, ops.KERNELS, ref)
         phase_golden(torch, np, tmp)
         ops.reset_launch_counts()                      # the main path starts
         events, host_events, _ = phase_events(torch, np, tmp, workers)
@@ -477,17 +833,26 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     for name in ("bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle"):
         assert counts[name] - after3[name] > 0, f"{name} not launched in phase 4"
-    for name in ops.KERNELS:
-        assert counts[name] > 0, f"{name} never launched on the main path"
+    for name in ops.PRECOND_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on the checkpoint path"
+    import torch.distributed as dist
+    try:
+        serve, serve_counts = phase_serve(torch, ops)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for name in ("qpack", "qunpack"):
+        assert serve_counts[name] > 0, f"{name} never launched on the serve path"
+        counts[name] = serve_counts[name]
     for row in rows:
         row["launches"] = counts[row["name"]]
     log(json.dumps({"phase3_events": events, "phase4_qwen3_8b_depth1": train,
-                    "precond_share": share, "card": smi,
-                    "wall_s": time.perf_counter() - t_start}))
+                    "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
+                    "card": smi, "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": CARDS_USED}}))
     return 0
 
 

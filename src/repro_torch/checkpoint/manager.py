@@ -416,17 +416,19 @@ def load_pytree(path: str, template=None, shardings=None, workers: int = 4,
 def tree_from_numpy(tree, device=None, bf16: Iterable[str] = ()):
     """The reference's state as nested numpy arrays -> the port's tensors.
 
-    bf16 leaves arrive as their uint16 bit patterns, named by dotted path in
-    ``bf16`` (the checkpoint's ``__meta__["bf16"]`` list), so no bf16 numpy
-    dtype is needed.  ``device`` defaults to the GPU."""
+    A bf16 leaf arrives either as a numpy ``bfloat16`` array (``np.asarray``
+    of a JAX array) or as its uint16 bit pattern named by dotted path in
+    ``bf16`` (the checkpoint's ``__meta__["bf16"]`` list); both carry the
+    same bits across.  ``device`` defaults to the GPU."""
     device = _resolve_device(device)
     bf16 = set(bf16)
     flat = {}
     for name, val in _flatten_with_paths(tree).items():
         if val is None:
             continue
-        t = torch.from_numpy(np.array(val, copy=True))
-        if name in bf16:
+        arr = np.array(val, copy=True)
+        t = torch.from_numpy(_np_view(arr))
+        if name in bf16 or arr.dtype.name == "bfloat16":
             t = t.view(torch.bfloat16)
         flat[name] = t.to(device)
     return _rebuild(tree, flat)

@@ -1,8 +1,10 @@
-"""repro_torch.kernels — the checkpoint's preconditioners on the GPU.
+"""repro_torch.kernels — the port's hand-written GPU kernels.
 
-``bitshuffle``, ``byteshuffle`` and ``delta`` each wrap a hand-written
-CUDA kernel (``csrc/*.cu``, built by ``_build`` at first use) and count its
-launches; ``ref`` holds their plain PyTorch versions, which a wrapper runs
-only for a tensor on the CPU.  ``ops`` applies a precond spec string to one
-basket.
+``bitshuffle``, ``byteshuffle`` and ``delta`` (the checkpoint's
+preconditioners) and ``qpack`` (the compressed TP reduction's int8
+quantizer) each wrap a hand-written CUDA kernel (``csrc/*.cu``, built by
+``_build`` at first use) and count its launches; ``ref`` holds their plain
+PyTorch versions, which a wrapper runs only for a tensor on the CPU.
+``ops`` applies a precond spec string to one basket and quantizes tensors
+of any shape.
 """

@@ -1,4 +1,4 @@
-"""Build and load the preconditioner kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Each ``.cu`` compiles with its own ``nvcc`` process, all started together,
 into an object for ``sm_90a``; one more ``nvcc`` links them into a shared
@@ -24,8 +24,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "check_bytes", "output", "require_aligned",
-           "BUILD_DIR"]
+__all__ = ["library", "call", "launch", "check_bytes", "output",
+           "require_aligned", "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -33,7 +33,7 @@ BUILD_DIR = _HERE / "build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # name -> argtypes; every launcher returns a cudaError_t as int
 _SIGNATURES = {
     "rt_bitshuffle": [_P, _P, _I64, _I, _I64, _P],
@@ -42,6 +42,8 @@ _SIGNATURES = {
     "rt_byteunshuffle": [_P, _P, _I64, _I, _I64, _P],
     "rt_delta": [_P, _P, _I64, _I, _I64, _P],
     "rt_undelta": [_P, _P, _I64, _I, _I64, _P, _P],
+    "rt_qpack": [_P, _P, _P, _I64, _I64, _I, _F, _P],
+    "rt_qunpack": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -102,7 +104,7 @@ def library():
     global _lib, build_seconds
     with _lock:
         if _lib is None:
-            target = BUILD_DIR / f"libprecond-{_digest()}.so"
+            target = BUILD_DIR / f"libkernels-{_digest()}.so"
             if not target.exists():
                 t0 = time.perf_counter()
                 _build(target)
@@ -147,20 +149,27 @@ def require_aligned(itemsize: int, what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: pointer not aligned to {itemsize} bytes")
 
 
-def launch(wrapper, symbol: str, src: torch.Tensor, dst: torch.Tensor,
-           n: int, itemsize: int, tail: int, *extra) -> None:
-    """Run launcher ``symbol`` over ``n`` elements and ``tail`` bytes from
-    ``src`` into ``dst`` on the current stream of their device, raise on a
-    CUDA error, and add one to ``wrapper.launches`` when a kernel ran
-    (``n > 0``; a tail alone is a plain copy)."""
+def call(wrapper, symbol: str, device: torch.device, *args,
+         counted: bool = True) -> None:
+    """Run launcher ``symbol`` with ``args`` on the current stream of
+    ``device``, raise on a CUDA error, and add one to ``wrapper.launches``
+    when ``counted`` (a kernel ran)."""
     lib = library()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = getattr(lib, symbol)(src.data_ptr(), dst.data_ptr(), n,
-                                    itemsize, tail, *extra, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, symbol)(*args, stream)
     if code:
         msg = lib.rt_error_string(code).decode()
         raise RuntimeError(f"{symbol} failed: {msg} (cudaError {code})")
-    if n > 0:
+    if counted:
         with _lock:       # wrappers run on several threads
             wrapper.launches += 1
+
+
+def launch(wrapper, symbol: str, src: torch.Tensor, dst: torch.Tensor,
+           n: int, itemsize: int, tail: int, *extra) -> None:
+    """A preconditioner launcher over ``n`` elements and ``tail`` bytes from
+    ``src`` into ``dst``; counted when a kernel ran (``n > 0``: a tail
+    alone is a plain copy)."""
+    call(wrapper, symbol, src.device, src.data_ptr(), dst.data_ptr(), n,
+         itemsize, tail, *extra, counted=n > 0)

@@ -1,7 +1,8 @@
-// Shared helpers for the preconditioner kernels (plain C interface, loaded
-// with ctypes).  Every launcher takes one basket's bytes: `n` whole elements
-// of `itemsize` bytes, then `tail` = len % itemsize bytes that the
-// preconditioners pass through unchanged (core/precond.py semantics).
+// Shared helpers for the port's kernels (plain C interface, loaded with
+// ctypes).  Every preconditioner launcher takes one basket's bytes: `n`
+// whole elements of `itemsize` bytes, then `tail` = len % itemsize bytes
+// that the preconditioners pass through unchanged (core/precond.py
+// semantics).
 #pragma once
 
 #include <cstdint>

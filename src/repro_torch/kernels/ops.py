@@ -1,4 +1,5 @@
-"""Precond spec strings applied to one basket's bytes on its device.
+"""Precond spec strings applied to one basket's bytes on its device, and
+the int8 quantizer's any-shape entry points.
 
 A spec names the stages the container records per branch (``"bitshuffle4"``,
 ``"shuffle2"``, ``"delta8+shuffle8"``, ...; grammar of
@@ -7,6 +8,10 @@ held as a 1-D ``uint8`` tensor; :func:`unprecondition_into` runs them
 backwards and lands the last stage in the destination slice.  Each stage is
 one kernel wrapper: on a CUDA tensor it launches the kernel, on a CPU tensor
 it runs the plain version, with no fallback between the two.
+
+:func:`quantize_int8`/:func:`dequantize_int8` are the reference's
+(``repro/kernels/ops.py:153-169``): any tensor viewed as (R, C) over its
+last dim, quantized per row by the ``qpack`` kernel.
 """
 
 from __future__ import annotations
@@ -17,13 +22,17 @@ from ..core.precond import _parse
 from .bitshuffle import bitshuffle, bitunshuffle
 from .byteshuffle import byteshuffle, byteunshuffle
 from .delta import delta, undelta
+from .qpack import qpack, qunpack
 
-__all__ = ["precondition", "unprecondition_into", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["precondition", "unprecondition_into", "quantize_int8",
+           "dequantize_int8", "PRECOND_KERNELS", "KERNELS", "launch_counts",
+           "reset_launch_counts"]
 
-# the six kernel wrappers, by the name chip_smoke.py reports them under
-KERNELS = {fn.__name__: fn for fn in (bitshuffle, bitunshuffle, byteshuffle,
-                                      byteunshuffle, delta, undelta)}
+# the kernel wrappers, by the name chip_smoke.py reports them under: the six
+# preconditioners of the checkpoint path, then the serve path's quantizer
+PRECOND_KERNELS = {fn.__name__: fn for fn in (
+    bitshuffle, bitunshuffle, byteshuffle, byteunshuffle, delta, undelta)}
+KERNELS = {**PRECOND_KERNELS, "qpack": qpack, "qunpack": qunpack}
 
 _FORWARD = {"bitshuffle": bitshuffle, "shuffle": byteshuffle, "delta": delta}
 
@@ -68,6 +77,21 @@ def unprecondition_into(spec: str, staged: torch.Tensor, out: torch.Tensor,
             cur = undelta(cur, itemsize, out=dst)
     if cur is not out:
         out.copy_(cur)
+
+
+def quantize_int8(x: torch.Tensor):
+    """Any-shape float tensor -> (q int8 (R, C), scales float32 (R, 1),
+    original shape); rows of the (R, C) view over the last dim (the whole
+    tensor for 1-D) are the quantization groups, zero rows scale 0."""
+    shape = x.shape
+    mat = x.reshape(-1, shape[-1]) if x.dim() > 1 else x.reshape(1, -1)
+    q, s = qpack(mat.contiguous())
+    return q, s, shape
+
+
+def dequantize_int8(q: torch.Tensor, s: torch.Tensor, shape,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return qunpack(q, s, dtype).reshape(shape)
 
 
 def launch_counts() -> dict[str, int]:

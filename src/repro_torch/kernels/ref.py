@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the preconditioner kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each function takes one basket's bytes as a 1-D ``uint8`` tensor and
+Each preconditioner takes one basket's bytes as a 1-D ``uint8`` tensor and
 returns a new ``uint8`` tensor, with exactly the per-basket semantics of
 ``core/precond.py``: ``len % itemsize`` tail bytes pass through, bit planes
 are padded to ``ceil(N/8)`` bytes with zero bits, and delta restarts at the
-basket's first element, mod ``2**(8*itemsize)``.
+basket's first element, mod ``2**(8*itemsize)``.  ``qpack``/``qunpack`` are
+the per-row int8 quantizer of ``repro/kernels/ref.py:qpack_ref`` and its
+inverse, rounding at the same steps.
 
 They run on any device.  The kernel wrappers call them only for CPU
 tensors; ``chip_smoke.py`` runs them on the card to check the kernels.
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle",
-           "delta", "undelta"]
+           "delta", "undelta", "qpack", "qunpack"]
 
 # wraparound arithmetic runs in the signed type of the same width: the bits
 # mod 2**k are those of the unsigned result, and torch covers signed types
@@ -106,3 +108,30 @@ def undelta(buf: torch.Tensor, itemsize: int) -> torch.Tensor:
     # the low bits, i.e. the sum mod 2**k
     out = torch.cumsum(v, 0).to(sdt)
     return torch.cat([out.view(torch.uint8), tail])
+
+
+def qpack(x: torch.Tensor, zero_scale: float = 0.0):
+    """(R, C) float -> (q int8 (R, C), scale float32 (R, 1)): scale =
+    amax * float32(1/127) (``zero_scale`` where that is 0), q =
+    clip(round_half_even(x / scale), -127, 127), dividing by 1 where the
+    scale is 0.  The scale is a product, not ``amax / 127``, because that
+    is what the reference computes once XLA has compiled it (it rewrites
+    a division by a constant); ``x / scale`` stays a true division."""
+    xf = x.float()
+    # the Python float is rounded to float32, the op's type: XLA's constant
+    s = xf.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0)
+    zero = s == 0
+    q = torch.round(xf / torch.where(zero, 1.0, s)).clamp_(-127, 127)
+    return q.to(torch.int8), torch.where(zero, zero_scale, s)
+
+
+def qunpack(q: torch.Tensor, scale: torch.Tensor,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """q (R, C) * scale (R, 1) as ``dtype``; for (k, R, C) payloads the sum
+    over k of each product, in float32 and in k order."""
+    if q.dim() == 2:
+        q, scale = q[None], scale[None]
+    acc = q[0].float() * scale[0]
+    for j in range(1, q.shape[0]):
+        acc = acc + q[j].float() * scale[j]
+    return acc.to(dtype)

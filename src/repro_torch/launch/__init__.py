@@ -1,0 +1,2 @@
+"""repro_torch.launch — entry points of the port (``python -m
+repro_torch.launch.serve``)."""

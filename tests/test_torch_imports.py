@@ -36,6 +36,9 @@ def test_port_imports_with_jax_and_repro_blocked():
     r = _run(_BLOCKER.format(blocked=BLOCKED) + """
 import repro_torch, repro_torch.checkpoint, repro_torch.kernels.ops
 import repro_torch.data, repro_torch.repair
+import repro_torch.configs, repro_torch.models, repro_torch.parallel
+import repro_torch.serve, repro_torch.launch.serve
+repro_torch.configs.get_config("rwkv6-1.6b")
 assert not any(m.split(".")[0] in {blocked!r} for m in sys.modules), \\
     sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 """.format(blocked=BLOCKED))
