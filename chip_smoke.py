@@ -10,8 +10,18 @@ runs, failing on the first error:
 1. every kernel against its plain PyTorch version on the card: the six
    preconditioners byte-equal over itemsizes 1/2/4/8 and ragged sizes up to
    a 100 MB basket, and qpack/qunpack bit-equal over R x C shapes, types,
-   zero rows, .5 ties and the serve path's shapes, with times beside the
-   memory-bandwidth bound and one-call PyTorch yardsticks;
+   zero rows, .5 ties, the serve path's shapes, k = 1 and 3 and payloads
+   that are not 16-byte aligned, with times beside the memory-bandwidth bound
+   and one-call PyTorch yardsticks (qunpack against ``torch.mul(q, s)`` at
+   (32768, 2048), the prefill's (256, 2048) and the decode's (4, 2048));
+   then undelta under stress (n = 0, a tail alone, one tile and one tile
+   plus or minus an element, the wrap mod 2**(8*I), 100 MB baskets timed
+   beside ``torch.cumsum`` with delta beside ``torch.diff``, pointers I bytes
+   off a 16-byte boundary, back-to-back calls of growing size on one
+   stream, eight threads on one stream, two streams at once, one device
+   operation and no allocation but the output a call), and for every
+   kernel at its small shape the host microseconds and device operations a
+   call, from the profiler;
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
@@ -72,19 +82,70 @@ def stage_seconds() -> dict:
     return {k: round(v, 3) for k, v in sorted(out.items())}
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+def cuda_ms(fn, reps: int, rounds: int = 1) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls between two CUDA
+    events (the median of ``rounds`` such runs): device time for large work,
+    the host's enqueue rate for small."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    per_call = []
+    for _ in range(rounds):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return sorted(per_call)[rounds // 2]
+
+
+def paired_ms(kern, lib, reps: int, rounds: int = 5) -> tuple:
+    """(kernel ms, yardstick ms): :func:`cuda_ms` of each, one round of each
+    in turn, medians over ``rounds``, so both see the same host."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kern, reps))
+        ls.append(cuda_ms(lib, reps))
+    return sorted(ks)[rounds // 2], sorted(ls)[rounds // 2]
+
+
+def host_us(fn, calls: int = 2000, rounds: int = 5) -> float:
+    """Host microseconds per call: ``time.perf_counter`` over ``calls``
+    back-to-back calls with no synchronisation inside, the median of
+    ``rounds`` such runs (the host is shared, and its noise only adds)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(per_call)[rounds // 2]
+
+
+def device_ops(fn, calls: int = 50) -> tuple:
+    """(device microseconds per call, device operations per call, {name:
+    count}) over ``calls`` calls under torch.profiler: every kernel, memset
+    and memcpy the calls ran, by their own durations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs)
+    return (busy / calls, sum(e.count for e in evs) / calls,
+            {e.key: e.count for e in evs})
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +212,8 @@ def _library_call(name, x, itemsize):
         return lambda: x.view(itemsize, n).t().contiguous()
     signed = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     v = x.view(signed[itemsize])
-    if name == "undelta":
-        return lambda: torch.cumsum(v, 0)
+    if name == "undelta":                 # sums kept at the element's width
+        return lambda: torch.cumsum(v, 0, dtype=v.dtype)
     if name == "delta":
         zero = v[:1] * 0
         return lambda: torch.diff(v, prepend=zero)
@@ -204,13 +265,16 @@ def phase_kernels(torch, K, ref):
             x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
                               device="cuda", generator=g)
             args = _inputs(name, x, itemsize, K)
-            reps = 200 if nbytes <= (1 << 20) else 20
-            ms = cuda_ms(lambda: kern(*args), reps)
-            plain_ms = cuda_ms(lambda: plain(*args), max(reps // 10, 3))
+            # small calls: the host's rate, so medians of 5 rounds in turns
+            reps, rounds = (200, 5) if nbytes <= (1 << 20) else (20, 1)
             lib = _library_call(name, x, itemsize)
-            lib_ms = cuda_ms(lib, reps) if lib is not None else None
+            if lib is not None:
+                ms, lib_ms = paired_ms(lambda: kern(*args), lib, reps, rounds)
+            else:
+                ms, lib_ms = cuda_ms(lambda: kern(*args), reps, rounds), None
+            plain_ms = cuda_ms(lambda: plain(*args), max(reps // 10, 3))
             dst = torch.empty_like(x)
-            copy_ms = cuda_ms(lambda: dst.copy_(x), reps)
+            copy_ms = cuda_ms(lambda: dst.copy_(x), reps, rounds)
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
             err = (got.int() - want.int()).abs().max().item() \
@@ -267,15 +331,33 @@ def _quant_input(torch, g, rows, cols, dtype, kind):
     return x.to(dtype)
 
 
+QUNPACK_SLOWEST_MS = 0.120        # (32768, 2048) bf16, k = 1: half its bound's rate
+
+
+def _unaligned(torch, t):
+    """A copy of ``t`` whose data starts one byte past a 16-byte boundary:
+    qunpack's scalar path."""
+    raw = torch.empty(t.numel() * t.element_size() + 32, dtype=torch.uint8,
+                      device=t.device)
+    at = (-raw.data_ptr()) % 16 + 1
+    out = raw[at:at + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 1
+    return out
+
+
 def phase_quant_kernels(torch, K, ref):
     """qpack/qunpack bit-equal to their plain versions on the card, then
-    timed at one prefill_32k sequence of rwkv6's width and at the serve
-    path's decode shape."""
+    timed at the serve path's decode (4, 2048) and prefill (256, 2048)
+    shapes and at one prefill_32k sequence of rwkv6's width, (32768, 2048),
+    qunpack beside ``torch.mul(q, s)``.  The JSON row's own keys hold the
+    (32768, 2048) times, as in earlier runs; ``decode_*`` and ``prefill_*``
+    keys hold the serve shapes', where the serve path launches both most."""
     g = torch.Generator(device="cuda").manual_seed(2)
     types = (torch.float32, torch.bfloat16)
     shapes = [(r, c) for r in (1, 4, 256, 32768) for c in (1, 7, 2047, 2048, 7168)]
     shapes += _serve_rows()
-    checked = 0
+    checked = unaligned = 0
     for rows, cols in shapes:
         for kind in ("random", "zeros", "ties", "halfway"):
             if kind in ("ties", "halfway") and (cols < 2 or rows * cols > 1 << 24):
@@ -297,25 +379,37 @@ def phase_quant_kernels(torch, K, ref):
                                                device="cuda", dtype=torch.int8)
                     sk = torch.cat([s[None], torch.rand((k - 1, rows, 1), generator=g,
                                                         device="cuda")])
-                    for out in types:
-                        got, want = K["qunpack"](qk, sk, out), ref.qunpack(qk, sk, out)
-                        torch.cuda.synchronize()
-                        if not same_bits(got, want):
-                            raise AssertionError(f"qunpack k={k} {rows}x{cols} {out} "
-                                                 f"{kind}: differs from the plain version")
-                        checked += 1
+                    # the gathered payloads as parallel/compressed.py hands them
+                    cases = [(qk, "")]
+                    if kind == "random" and dtype == torch.float32:
+                        cases.append((_unaligned(torch, qk), " unaligned"))
+                    for qc, note in cases:
+                        for out in types:
+                            got = K["qunpack"](qc, sk, out)
+                            want = ref.qunpack(qk, sk, out)
+                            torch.cuda.synchronize()
+                            if not same_bits(got, want):
+                                raise AssertionError(
+                                    f"qunpack k={k} {rows}x{cols} {out} {kind}{note}: "
+                                    "differs from the plain version")
+                            checked += 1
+                            unaligned += bool(note)
     log(f"phase 1: {checked} qpack/qunpack runs bit-equal to their plain versions "
         f"(R x C over {{1, 4, 256, 32768}} x {{1, 7, 2047, 2048, 7168}} and the "
-        f"serve path's {_serve_rows()}; f32/bf16 in and out; k = 1, 3; random, "
-        "zero, tie and halfway rows; zero-row scale 0 and 1)")
+        f"serve path's prefill and decode {_serve_rows()}; f32/bf16 in and out; "
+        f"k = 1, 3; random, zero, tie and halfway rows; zero-row scale 0 and 1; "
+        f"{unaligned} qunpack runs with payloads 1 byte off a 16-byte boundary)")
 
     rows_out = []
-    log("kernel    shape          ms        GB/s    bound_ms  plain_ms  library_ms")
+    log("kernel    shape          ms        GB/s    bound_ms  plain_ms  "
+        "library_ms   (library: torch.mul(q, s))")
+    shapes = (("decode", _serve_rows()[1]), ("prefill", _serve_rows()[0]),
+              ("prefill_32k", (32768, SERVE_D_MODEL)))
+    targets = []
     for name in ("qpack", "qunpack"):
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
                "replaces": REPLACES[name], "launches": 0, "bound_by": "bytes"}
-        for label, (rows, cols) in (("main", (32768, SERVE_D_MODEL)),
-                                    ("decode", _serve_rows()[1])):
+        for label, (rows, cols) in shapes:
             x = torch.randn((rows, cols), generator=g, device="cuda")
             q, s = K["qpack"](x, 1.0)
             if name == "qpack":
@@ -324,15 +418,17 @@ def phase_quant_kernels(torch, K, ref):
                 lib = None                  # no single PyTorch call quantizes
                 nbytes = 5 * rows * cols + 4 * rows
             else:
-                qk, sk = q[None], s[None]
+                qk, sk = q[None], s[None]   # k = 1: the one-rank serve path
                 def kern(): return K["qunpack"](qk, sk, torch.bfloat16)
                 def plain(): return ref.qunpack(qk, sk, torch.bfloat16)
                 def lib(): return torch.mul(q, s)
                 nbytes = 3 * rows * cols + 4 * rows
-            reps = 100 if label == "main" else 1000
-            ms = cuda_ms(kern, reps)
+            reps = 100 if rows * cols > 1 << 20 else 1000
+            if lib is not None:
+                ms, lib_ms = paired_ms(kern, lib, reps)
+            else:
+                ms, lib_ms = cuda_ms(kern, reps, 5), None
             plain_ms = cuda_ms(plain, max(reps // 10, 3))
-            lib_ms = cuda_ms(lib, reps) if lib is not None else None
             got, want = kern(), plain()
             torch.cuda.synchronize()
             if name == "qpack":
@@ -349,16 +445,302 @@ def phase_quant_kernels(torch, K, ref):
             lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
             log(f"{name:8s}  {rows:6d}x{cols:<6d} {ms:8.4f}  {nbytes / ms / 1e6:7.1f}  "
                 f"{bound_ms:8.4f}  {plain_ms:8.4f}  {lib_txt:>10}   [{label}]")
-            if label == "main":
+            if label == "prefill_32k":
                 row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, library_ms=lib_ms, shape=[rows, cols],
                            dtype="f32 in" if name == "qpack" else "bf16 out, k=1")
             else:
-                row.update(decode_shape=[rows, cols], decode_ms=ms,
-                           decode_plain_ms=plain_ms, decode_bound_ms=bound_ms,
-                           decode_library_ms=lib_ms)
+                row.update({f"{label}_shape": [rows, cols], f"{label}_ms": ms,
+                            f"{label}_plain_ms": plain_ms,
+                            f"{label}_bound_ms": bound_ms,
+                            f"{label}_library_ms": lib_ms})
+            if name == "qunpack" and label == "decode":
+                targets.append(f"qunpack {rows}x{cols}: {ms:.4f} ms vs torch.mul "
+                               f"{lib_ms:.4f} ms: {'met' if ms <= lib_ms else 'missed'}")
+            if name == "qunpack" and label == "prefill_32k":
+                ok = ms <= QUNPACK_SLOWEST_MS and ms < lib_ms
+                targets.append(f"qunpack {rows}x{cols}: {ms:.4f} ms vs "
+                               f"{QUNPACK_SLOWEST_MS} ms (half the {bound_ms:.4f} ms "
+                               f"bound's rate) and torch.mul {lib_ms:.4f} ms: "
+                               f"{'met' if ok else 'missed'}")
         rows_out.append(row)
+    for t in targets:
+        log(f"phase 1: target {t}")
     return rows_out
+
+
+# ---------------------------------------------------------------------------
+# phase 1, continued: the undelta scan under stress, and the launch path's
+# host / device split
+# ---------------------------------------------------------------------------
+
+SCAN_LARGE = 100_000_000          # bytes: an offset branch that is one basket
+UNDELTA_SLOWEST_MS = 0.119        # 100 MB: half the bound's rate
+
+
+def _scan_equal(torch, ref, name, got, x, itemsize, what):
+    torch.cuda.synchronize()
+    want = getattr(ref, name)(x, itemsize)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} itemsize={itemsize} [{what}]: differs "
+                             "from the plain version")
+
+
+def phase_scan(torch, K, ref):
+    """undelta byte-equal to its plain version over the cases its design
+    turns on, delta and undelta timed at 100 MB; returns {name: {itemsize:
+    times}}."""
+    import threading
+    from repro_torch.kernels import delta as dmod
+    g = torch.Generator(device="cuda").manual_seed(3)
+    undelta = K["undelta"]
+
+    def rand(nbytes):
+        return torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device="cuda",
+                             generator=g)
+
+    large = {"delta": {}, "undelta": {}}
+    targets = []
+    log("kernel    itemsize  bytes        ms        GB/s    bound_ms  library_ms"
+        "   (library: torch.diff, torch.cumsum)")
+    for itemsize in (4, 8):
+        x = rand(SCAN_LARGE)
+        for name in ("delta", "undelta"):
+            kern = K[name]
+            got = kern(x, itemsize)
+            _scan_equal(torch, ref, name, got, x, itemsize, "100 MB")
+            ms, lib_ms = paired_ms(lambda: kern(x, itemsize),
+                                   _library_call(name, x, itemsize), 20, 3)
+            bound_ms = 2 * SCAN_LARGE / HBM_BYTES_PER_S * 1e3
+            large[name][itemsize] = {"bytes": SCAN_LARGE, "ms": ms,
+                                     "library_ms": lib_ms, "bound_ms": bound_ms}
+            log(f"{name:9s} {itemsize:8d}  {SCAN_LARGE:11d}  {ms:8.4f}  "
+                f"{2 * SCAN_LARGE / ms / 1e6:7.1f}  {bound_ms:8.4f}  "
+                f"{lib_ms:10.4f}   [100 MB]")
+            if name == "undelta":
+                targets.append(f"undelta {itemsize} x 100 MB: {ms:.4f} ms vs "
+                               f"{UNDELTA_SLOWEST_MS} ms (half the {bound_ms:.4f} ms "
+                               f"bound's rate): "
+                               f"{'met' if ms <= UNDELTA_SLOWEST_MS else 'missed'}")
+        del x, got
+
+    checked = 0
+    tile = dmod.TILE_BYTES
+    for itemsize in (1, 2, 4, 8):
+        # n = 0, a tail alone, one tile, one tile -/+ an element, several
+        for nbytes in (0, itemsize - 1, tile, tile - itemsize, tile + itemsize,
+                       7 * tile + itemsize - 1):
+            x = rand(nbytes)
+            _scan_equal(torch, ref, "undelta", undelta(x, itemsize), x, itemsize,
+                        f"{nbytes} bytes")
+            checked += 1
+        # the wrap mod 2**(8*I): every element the largest value less 3
+        big = torch.full((3 * tile // itemsize,), -4, dtype=ref._SIGNED[itemsize],
+                         device="cuda").view(torch.uint8)
+        _scan_equal(torch, ref, "undelta", undelta(big, itemsize), big, itemsize,
+                    "wrap")
+        checked += 1
+        # pointers I bytes off a 16-byte boundary: the scalar staging
+        for nbytes in (1000 * itemsize + itemsize - 1, (3 << 20) + 5):
+            pad = rand(nbytes + 32)
+            base = (-pad.data_ptr()) % 16
+            for lo_in, lo_out in ((itemsize, 0), (0, itemsize), (itemsize, itemsize)):
+                x = pad[base + lo_in:base + lo_in + nbytes]
+                out = torch.empty(nbytes + 32, dtype=torch.uint8, device="cuda")
+                obase = (-out.data_ptr()) % 16
+                dst = out[obase + lo_out:obase + lo_out + nbytes]
+                assert (x.data_ptr() % 16, dst.data_ptr() % 16) == \
+                    (lo_in % 16, lo_out % 16)
+                for name in ("delta", "undelta"):
+                    got = K[name](x, itemsize, out=dst)
+                    _scan_equal(torch, ref, name, got, x, itemsize,
+                                f"offsets {lo_in}/{lo_out}, {nbytes} bytes")
+                    checked += 1
+
+    # back-to-back calls on one (fresh) stream, growing: the workspace is
+    # reused between launches and regrown (and replaced) while earlier
+    # launches may still run; no synchronisation until all are checked
+    side = torch.cuda.Stream()
+    grow = [(rand(int(tile * 1.7 ** k) + k % 8), (8, 4, 2, 1)[k % 4])
+            for k in range(14)]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs = [undelta(*grow[0])]
+        before = dmod.workspaces()[(0, side.cuda_stream)][1]
+        outs += [undelta(x, i) for x, i in grow[1:] for _ in range(3)]
+        after = dmod.workspaces()[(0, side.cuda_stream)][1]
+    calls = [grow[0]] + [c for c in grow[1:] for _ in range(3)]
+    for j, (got, (x, i)) in enumerate(zip(outs, calls)):
+        _scan_equal(torch, ref, "undelta", got, x, i, f"back-to-back call {j}")
+        checked += 1
+    assert after > before, (before, after)
+
+    # eight threads launching undelta on one stream at once, as the
+    # checkpoint's restore does
+    cases = [(rand((k + 1) * (1 << 20) + k), (8, 4, 2, 1)[k % 4]) for k in range(8)]
+    results, streams = [None] * 8, set()
+    start = threading.Barrier(8)
+
+    def restore_like(k):
+        x, itemsize = cases[k]
+        streams.add(torch.cuda.current_stream().cuda_stream)
+        start.wait()
+        results[k] = [undelta(x, itemsize) for _ in range(25)]
+
+    threads = [threading.Thread(target=restore_like, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(streams) == 1, streams
+    for (x, itemsize), outs in zip(cases, results):
+        for got in outs:
+            _scan_equal(torch, ref, "undelta", got, x, itemsize, "8 threads, 1 stream")
+            checked += 1
+
+    # two streams launching at once: each has its own workspace
+    pair = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [rand(32 << 20), rand((32 << 20) + 3)]
+    torch.cuda.synchronize()
+    outs2 = [None, None]
+    start2 = threading.Barrier(2)
+
+    def on_stream(k):
+        with torch.cuda.stream(pair[k]):
+            start2.wait()
+            outs2[k] = [undelta(inputs[k], 8) for _ in range(20)]
+        pair[k].synchronize()
+
+    threads = [threading.Thread(target=on_stream, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for x, outs in zip(inputs, outs2):
+        for got in outs:
+            _scan_equal(torch, ref, "undelta", got, x, 8, "2 streams at once")
+            checked += 1
+    ws = dmod.workspaces()
+    own = [ws[(0, s.cuda_stream)][0] for s in pair]
+    assert own[0] != own[1], "two streams share a workspace"
+
+    # one device operation a call, and nothing allocated but the output
+    # (nothing at all with out=); the profiler may drop an event, never add one
+    x, out = rand(1 << 20), torch.empty(1 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        _, per_call, names = device_ops(lambda: undelta(x, 8, out=out), 10)
+        if per_call >= 1:
+            break
+    assert per_call == 1 and len(names) == 1, names
+    assert "undelta_kernel" in next(iter(names)), names
+    stat = "allocation.all.allocated"
+    n0 = torch.cuda.memory_stats()[stat]
+    for _ in range(10):
+        undelta(x, 8, out=out)
+    n1 = torch.cuda.memory_stats()[stat]
+    for _ in range(10):
+        undelta(x, 8)
+    n2 = torch.cuda.memory_stats()[stat]
+    assert (n1 - n0, n2 - n1) == (0, 10), (n1 - n0, n2 - n1)
+    log(f"phase 1: {checked} undelta runs byte-equal to the plain version beyond "
+        "the table above (itemsizes 1/2/4/8: n = 0, a tail alone, one tile, one "
+        "tile -/+ an element, 7 tiles, the wrap; delta too at pointers I bytes "
+        f"off a 16-byte boundary; {len(calls)} back-to-back calls of growing size "
+        f"on one stream, its workspace grown from {before} to {after} tiles; 8 "
+        "threads on one stream; 2 streams at once with their own workspaces); one device "
+        "operation a call, no allocation with out=, one without")
+    for t in targets:
+        log(f"phase 1: target {t}")
+    return large
+
+
+def _small_calls(torch, K):
+    """name -> (kernel call, one-call PyTorch yardstick or None) at each
+    kernel's small main-path shape: a 1 MiB basket for the preconditioners,
+    the decode step's (4, 2048) for the quantizer."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    calls = {}
+    for name, (itemsize, _) in MAIN_SHAPES.items():
+        x = torch.randint(0, 256, (1 << 20,), dtype=torch.uint8, device="cuda",
+                          generator=g)
+        args = _inputs(name, x, itemsize, K)
+        calls[name] = ((lambda f=K[name], a=args: f(*a)),
+                       _library_call(name, x, itemsize))
+    x = torch.randn(_serve_rows()[1], generator=g, device="cuda")
+    q, s = K["qpack"](x, 1.0)
+    qk, sk = q[None], s[None]
+    calls["qpack"] = ((lambda: K["qpack"](x, 1.0)), None)
+    calls["qunpack"] = ((lambda: K["qunpack"](qk, sk, torch.bfloat16)),
+                        (lambda: torch.mul(q, s)))
+    return calls
+
+
+def phase_launch_split(torch, K):
+    """Every kernel at its small shape: host microseconds per call (no
+    sync), device microseconds and device operations per call (profiler),
+    and the same for its one-call PyTorch yardstick."""
+    split = {}
+    log("kernel         host_us  device_us  ops/call   library host_us  device_us")
+    for name, (kern, lib) in _small_calls(torch, K).items():
+        h = host_us(kern)
+        for _ in range(3):              # the profiler may drop an event
+            d, ops_per_call, names = device_ops(kern)
+            if ops_per_call >= 1:
+                break
+        row = {"host_us": h, "device_us": d, "device_ops_per_call": ops_per_call}
+        txt = "-"
+        if lib is not None:
+            lh = host_us(lib)
+            ld, lops, _ = device_ops(lib)
+            row.update(library_host_us=lh, library_device_us=ld,
+                       library_device_ops_per_call=lops)
+            txt = f"{lh:8.2f}  {ld:8.2f} ({lops:g} ops)"
+        split[name] = row
+        log(f"{name:13s} {h:8.2f}  {d:9.2f}  {ops_per_call:8g}   {txt}")
+        if name in ("undelta", "qunpack"):
+            assert ops_per_call == 1 and len(names) == 1, (name, names)
+    # the small-shape targets, on each side of the call: the host's time to
+    # issue it and the device's time to run it
+    for name, what in (("undelta", "1 MiB, torch.cumsum"),
+                       ("qunpack", "(4, 2048), torch.mul")):
+        r = split[name]
+        for side in ("host", "device"):
+            us, lib_us = r[f"{side}_us"], r[f"library_{side}_us"]
+            log(f"phase 1: target {name} {what}, {side} us a call: {us:.2f} vs "
+                f"{lib_us:.2f}: {'met' if us <= lib_us else 'missed'}")
+    split["qunpack"]["host_split_us"] = qunpack_host_split(torch, K)
+    return split
+
+
+def qunpack_host_split(torch, K, calls: int = 2000, rounds: int = 5) -> dict:
+    """Host microseconds a call of the pieces of qunpack's decode-shape call
+    beside ``torch.mul(q, s)``: the whole wrapper, its output allocation,
+    the shared launch path (``_build.call``) and the launcher alone through
+    ctypes, each with fixed pointers; medians over ``rounds`` taken in turns."""
+    from repro_torch.kernels import _build
+    x = torch.randn(_serve_rows()[1], generator=torch.Generator(device="cuda")
+                    .manual_seed(5), device="cuda")
+    q, s = K["qpack"](x, 1.0)
+    qk, sk = q[None], s[None]
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device="cuda")
+    args = (qk.data_ptr(), sk.data_ptr(), out.data_ptr(), 1, *q.shape, 1)
+    fn, stream = _build._fns["rt_qunpack"], _build.current_stream(0)
+    pieces = {
+        "wrapper": lambda: K["qunpack"](qk, sk, torch.bfloat16),
+        "torch.mul(q, s)": lambda: torch.mul(q, s),
+        "output allocation": lambda: q.new_empty(q.shape, dtype=torch.bfloat16),
+        "_build.call": lambda: _build.call(None, "rt_qunpack", 0, *args,
+                                           counted=False),
+        "launcher via ctypes": lambda: fn(*args, stream),
+    }
+    per = {k: [] for k in pieces}
+    for _ in range(rounds):
+        for name, f in pieces.items():
+            per[name].append(host_us(f, calls, 1))
+    split = {k: sorted(v)[rounds // 2] for k, v in per.items()}
+    log("phase 1: qunpack (4, 2048) host us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()))
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -820,6 +1202,12 @@ def main() -> int:
     try:
         rows = phase_kernels(torch, ops.PRECOND_KERNELS, ref)
         rows += phase_quant_kernels(torch, ops.KERNELS, ref)
+        large = phase_scan(torch, ops.KERNELS, ref)
+        split = phase_launch_split(torch, ops.KERNELS)
+        for row in rows:
+            row["at_small_shape"] = split[row["name"]]
+            if row["name"] in large:
+                row["at_100mb"] = large[row["name"]]
         phase_golden(torch, np, tmp)
         ops.reset_launch_counts()                      # the main path starts
         events, host_events, _ = phase_events(torch, np, tmp, workers)
@@ -831,6 +1219,8 @@ def main() -> int:
         share = precond_share(torch, np, host_events, events["save_s"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # the restore undoes every delta of the save: one undelta a basket
+    assert after3["undelta"] == after3["delta"] > 0, after3
     for name in ("bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle"):
         assert counts[name] - after3[name] > 0, f"{name} not launched in phase 4"
     for name in ops.PRECOND_KERNELS:

@@ -8,6 +8,13 @@ this module (listed in ``.gitignore``), so a checkout builds it at first
 use and an edited source never loads a stale build.
 
 Nothing here runs at import: :func:`library` builds on its first call.
+
+:func:`call` is every wrapper's launch path.  At the main path's small
+shapes a call's time is the host's, so it does little: the launchers are
+bound once when the library loads, the current device and stream come from
+PyTorch's raw getters (no ``Stream`` object, no device guard unless the
+tensor lies on another device than the current one), and the launch
+counters take a lock of their own.
 """
 
 from __future__ import annotations
@@ -24,8 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "call", "launch", "check_bytes", "output",
-           "require_aligned", "BUILD_DIR"]
+__all__ = ["library", "call", "launch", "current_stream", "check_bytes",
+           "output", "require_aligned", "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -34,21 +41,33 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# name -> argtypes; every launcher returns a cudaError_t as int
+# name -> argtypes of the launcher's arguments before its last, the stream
+# (a void* or cudaStream_t); every launcher returns a CUDA error code as int.
+# tests/test_torch_launch.py holds these against the sources' extern "C"
+# declarations.
 _SIGNATURES = {
-    "rt_bitshuffle": [_P, _P, _I64, _I, _I64, _P],
-    "rt_bitunshuffle": [_P, _P, _I64, _I, _I64, _P],
-    "rt_byteshuffle": [_P, _P, _I64, _I, _I64, _P],
-    "rt_byteunshuffle": [_P, _P, _I64, _I, _I64, _P],
-    "rt_delta": [_P, _P, _I64, _I, _I64, _P],
-    "rt_undelta": [_P, _P, _I64, _I, _I64, _P, _P],
-    "rt_qpack": [_P, _P, _P, _I64, _I64, _I, _F, _P],
-    "rt_qunpack": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
+    "rt_bitshuffle": [_P, _P, _I64, _I, _I64],
+    "rt_bitunshuffle": [_P, _P, _I64, _I, _I64],
+    "rt_byteshuffle": [_P, _P, _I64, _I, _I64],
+    "rt_byteunshuffle": [_P, _P, _I64, _I, _I64],
+    "rt_delta": [_P, _P, _I64, _I, _I64],
+    "rt_undelta": [_P, _P, _I64, _I, _I64, _P, _I64],
+    "rt_qpack": [_P, _P, _P, _I64, _I64, _I, _F],
+    "rt_qunpack": [_P, _P, _P, _I64, _I64, _I64, _I],
 }
 
-_lock = threading.Lock()
+_lock = threading.Lock()           # the build and the load
+_count_lock = threading.Lock()     # launch counters: wrappers run on several threads
 _lib = None
+_fns: dict = {}                    # symbol -> bound launcher, filled by library()
 build_seconds = None      # wall time of this process's build (None: cached)
+
+# the calling thread's current device, and the raw handle of a device's
+# current stream: PyTorch's own getters where the build has them, else its
+# public API (the same answers, each a few microseconds slower)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
 
 
 def _nvcc() -> str:
@@ -112,9 +131,8 @@ def library():
             lib = ctypes.CDLL(str(target))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            lib.rt_undelta_tiles.argtypes = [_I64]
-            lib.rt_undelta_tiles.restype = _I64
+                fn.argtypes, fn.restype = [*argtypes, _P], ctypes.c_int
+                _fns[name] = fn
             lib.rt_error_string.argtypes = [_I]
             lib.rt_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -149,27 +167,41 @@ def require_aligned(itemsize: int, what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: pointer not aligned to {itemsize} bytes")
 
 
-def call(wrapper, symbol: str, device: torch.device, *args,
+def current_stream(index: int) -> int:
+    """The raw handle of the calling thread's current stream on CUDA device
+    ``index``."""
+    return _raw_stream(index)
+
+
+def call(wrapper, symbol: str, index: int, *args, stream: int | None = None,
          counted: bool = True) -> None:
-    """Run launcher ``symbol`` with ``args`` on the current stream of
-    ``device``, raise on a CUDA error, and add one to ``wrapper.launches``
-    when ``counted`` (a kernel ran)."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, symbol)(*args, stream)
+    """Run launcher ``symbol`` with ``args`` on CUDA device ``index``, on
+    ``stream`` (default: that device's current stream); raise on a CUDA
+    error, and add one to ``wrapper.launches`` when ``counted`` (a kernel
+    ran)."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        library()
+        fn = _fns[symbol]
+    if stream is None:
+        stream = _raw_stream(index)
+    if index == _current_device():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, stream)
     if code:
-        msg = lib.rt_error_string(code).decode()
-        raise RuntimeError(f"{symbol} failed: {msg} (cudaError {code})")
+        msg = _lib.rt_error_string(code).decode()
+        raise RuntimeError(f"{symbol} failed: {msg} (CUDA error {code})")
     if counted:
-        with _lock:       # wrappers run on several threads
+        with _count_lock:
             wrapper.launches += 1
 
 
 def launch(wrapper, symbol: str, src: torch.Tensor, dst: torch.Tensor,
-           n: int, itemsize: int, tail: int, *extra) -> None:
+           n: int, itemsize: int, tail: int) -> None:
     """A preconditioner launcher over ``n`` elements and ``tail`` bytes from
     ``src`` into ``dst``; counted when a kernel ran (``n > 0``: a tail
     alone is a plain copy)."""
-    call(wrapper, symbol, src.device, src.data_ptr(), dst.data_ptr(), n,
-         itemsize, tail, *extra, counted=n > 0)
+    call(wrapper, symbol, src.get_device(), src.data_ptr(), dst.data_ptr(), n,
+         itemsize, tail, counted=n > 0)

@@ -1,6 +1,7 @@
 // Delta and its inverse over one basket of little-endian unsigned integers,
 // mod 2^(8*I): out[0] = x[0], out[i] = x[i] - x[i-1]; the inverse is the
-// inclusive prefix sum.  Every basket restarts at its own first element.
+// inclusive prefix sum.  Every basket restarts at its own first element, and
+// the len % I tail bytes pass through.
 //
 // Replaces the Pallas kernels src/repro/kernels/delta.py:delta_block
 // (_delta_kernel) and :undelta_block (_undelta_kernel).  Those are
@@ -8,19 +9,61 @@
 // one delta over a whole tensor; the container instead deltas each basket
 // on its own (src/repro/core/precond.py:delta_encode/delta_decode, applied
 // per basket by core/basket.py:pack_basket), which is what these compute,
-// for I = 1, 2, 4 and 8, with the len % I tail passed through.
+// for I = 1, 2, 4 and 8.
 //
-// Bound: data movement, N*I bytes read and N*I written: 2*N*I / 3.35 TB/s
-// on an H100 SXM.  The adds are free beside the bytes.
+// Bound: data movement, N*I bytes read once and N*I written once:
+// 2*N*I / 3.35 TB/s on an H100 SXM (0.6 us for a 1 MiB basket, 60 us for
+// 100 MB).  The adds are free beside the bytes.  At the checkpoint's 1 MiB
+// baskets both kernels are a few microseconds of device work, so the host's
+// launch path (kernels/_build.py:call) sets the time of a call.
 //
-// Design.  Delta: one element per thread, reading its left neighbour (the
-// neighbour's load hits the L1).  Undelta: a basket can be one tensor of
-// hundreds of MB, so the scan runs over many blocks with 64-bit offsets,
-// reduce-then-scan: (1) each block sums its 4096-element tile, (2) one block
-// turns the tile sums into exclusive carries, (3) each block scans its tile
-// again from its carry: 8 warps, each scanning 16 rows of 32 elements with
-// shuffles.  That reads the input twice (the second read mostly from L2
-// for baskets under 50 MB) and writes it once.
+// Delta: one element per thread, reading its left neighbour (the
+// neighbour's load hits the L1); the tail is a cudaMemcpyAsync.
+//
+// Undelta: one launch a call, its tail included, with no memcpy, no memset
+// and nothing allocated.  A single-pass scan with decoupled look-back
+// (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", 2016): one block per 32 KiB tile.  The block copies its tile
+// once into shared memory with 16-byte cp.async (zero-filled past the
+// basket's end; scalar loads when a pointer is not 16-byte aligned), scans
+// it per lane and then per 512-byte row with warp shuffles, and publishes
+// the tile's sum as its aggregate.  Warp 0 then looks back: each lane reads
+// one predecessor's status, 32 at a time, and sums aggregates down to the
+// nearest inclusive prefix (tile 0's prefix is its aggregate).  The block
+// publishes its own inclusive prefix, adds its exclusive prefix to the
+// tile, and stores it.  So the input is read once and the output written
+// once, where the reduce-then-scan of three kernels that this replaces
+// read it twice.  Offsets are 64-bit throughout: one basket may be hundreds
+// of MB.  The tile lives in shared memory, not registers, so a thread needs
+// about 40 registers and six blocks share an SM: while one block waits in
+// its look-back with nothing in flight, the others' copies keep the memory
+// busy.
+//
+// Three hazards, and what the design does about each:
+//
+// 1. Forward progress.  A block takes its tile index from an atomic ticket,
+//    not from blockIdx: blocks are not scheduled in index order, and a
+//    100 MB basket has ~3 050 tiles, more than can be resident at once.  A
+//    block that spun on a predecessor never scheduled would hang the card.
+//    With the ticket, every lower tile belongs to a block that has already
+//    started, and so will publish.
+// 2. Publication of 64-bit sums.  For I = 8 the value cannot share one word
+//    with its flag, so a status is the value written first, __threadfence(),
+//    then the flag; a reader loads the flag with ld.acquire and only then
+//    the value.  Sums wrap mod 2^32 for I <= 4 (the stored width divides
+//    it) and mod 2^64 for I = 8.
+// 3. The workspace.  The ticket and the tile statuses live in a workspace
+//    that the caller keeps across launches, one per (device, stream)
+//    (kernels/delta.py), zeroed once when it is made or grown and never
+//    reset by the host.  Each flag carries the launch's epoch beside its
+//    state, so a status left by an earlier launch reads as "not yet
+//    published".  The last block to finish (a done counter) sets the ticket
+//    and the counter back to 0 and advances the epoch, so the workspace is
+//    ready for the next launch when this one ends.  Launches on one stream
+//    run one after another, so threads that launch on one stream at once
+//    (the checkpoint's restore threads) share its workspace safely.  Two
+//    streams never share one: their launches may overlap, and their
+//    tickets would mix.
 #include "common.cuh"
 
 #include <type_traits>
@@ -29,14 +72,31 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 16;
-constexpr int64_t kTile = static_cast<int64_t>(kThreads) * kRowsPerWarp;  // 4096
-constexpr int kCarryThreads = 1024;
+constexpr int kVecBytes = 16;
+constexpr int kRows = 8;  // vectors per thread in an undelta tile
+// ~40 registers a thread and 6 x 32 KiB of tiles in shared memory an SM
+constexpr int kUndeltaBlocksPerSM = 6;
+// undelta tile; kernels/delta.py TILE_BYTES must say the same
+constexpr int64_t kTileBytes = 32768;
+static_assert(kTileBytes == int64_t{kThreads} * kRows * kVecBytes, "tile size");
+
+// workspace words: epoch, ticket, blocks done, unused; then `capacity` tile
+// flags, `capacity` aggregates, `capacity` inclusive prefixes
+// (kernels/delta.py HEADER_WORDS, workspace_words)
+constexpr int kHeaderWords = 4;
+constexpr unsigned long long kAggregate = 1, kPrefix = 2;  // flag & 3; 0: none
 
 // Sums wrap mod 2^32 for I <= 4 (the stored width divides it) and mod 2^64
 // for I = 8.
 template <int I>
 using Acc = typename std::conditional<I == 8, unsigned long long, uint32_t>::type;
+
+// one 16-byte vector of 16/I elements
+template <int I>
+union Vec {
+  uint4 u;
+  typename UInt<I>::T e[kVecBytes / I];
+};
 
 template <typename A>
 __device__ __forceinline__ A warp_inclusive_scan(A x) {
@@ -49,11 +109,45 @@ __device__ __forceinline__ A warp_inclusive_scan(A x) {
   return x;
 }
 
+// the warp's sum, in every lane
 template <typename A>
 __device__ __forceinline__ A warp_sum(A x) {
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(kFullMask, x, d);
+  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFullMask, x, d);
   return x;
+}
+
+// v <- elements [e0, e0 + 16/I) of p, zero from n on, one at a time (a
+// pointer that is not 16-byte aligned)
+template <int I>
+__device__ __forceinline__ void load_elements(
+    const typename UInt<I>::T* __restrict__ p, int64_t e0, int64_t n, Vec<I>& v) {
+#pragma unroll
+  for (int j = 0; j < kVecBytes / I; ++j) v.e[j] = e0 + j < n ? p[e0 + j] : 0;
+}
+
+// p[e0 : min(e0 + 16/I, n)] <- v
+template <int I, bool kVec>
+__device__ __forceinline__ void store(typename UInt<I>::T* __restrict__ p,
+                                      int64_t e0, int64_t n, const Vec<I>& v) {
+  constexpr int V = kVecBytes / I;
+  if constexpr (kVec) {
+    if (e0 + V <= n) {
+      *reinterpret_cast<uint4*>(p + e0) = v.u;
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (e0 + j < n) p[e0 + j] = v.e[j];
+}
+
+// the len % I tail bytes after the n elements pass through (one block)
+__device__ __forceinline__ void copy_tail_bytes(const void* in, void* out,
+                                                int64_t at, int tail) {
+  if (static_cast<int>(threadIdx.x) < tail)
+    static_cast<uint8_t*>(out)[at + threadIdx.x] =
+        static_cast<const uint8_t*>(in)[at + threadIdx.x];
 }
 
 template <int I>
@@ -67,96 +161,192 @@ delta_kernel(const typename UInt<I>::T* __restrict__ in,
   out[e] = static_cast<T>(in[e] - prev);
 }
 
-// (1) sums[t] = sum of tile t
-template <int I>
-__global__ void __launch_bounds__(kThreads)
-tile_sums_kernel(const typename UInt<I>::T* __restrict__ in,
-                 unsigned long long* __restrict__ sums, int64_t n) {
-  __shared__ Acc<I> part[kWarps];
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kTile;
-  Acc<I> s = 0;
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const int64_t e = start + i;
-    if (e < n) s += in[e];
-  }
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    Acc<I> total = 0;
-    for (int w = 0; w < kWarps; ++w) total += part[w];
-    sums[blockIdx.x] = total;
-  }
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// (2) one block: sums[t] <- sum of tiles before t (exclusive), in place
-__global__ void __launch_bounds__(kCarryThreads)
-tile_carries_kernel(unsigned long long* __restrict__ sums, int64_t tiles) {
-  __shared__ unsigned long long warp_prefix[32];
-  __shared__ unsigned long long carry;
+__device__ __forceinline__ unsigned long long ld_volatile(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void st_volatile(unsigned long long* p,
+                                            unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// a tile's status: its value, a fence, then the flag that makes it readable
+__device__ __forceinline__ void publish(unsigned long long* flag,
+                                        unsigned long long* slot,
+                                        unsigned long long value,
+                                        unsigned long long epoch,
+                                        unsigned long long state) {
+  st_volatile(slot, value);
+  __threadfence();
+  st_volatile(flag, (epoch << 2) | state);
+}
+
+// Warp 0 of the block that holds `tile` > 0: the sum of every tile before
+// it, from the predecessors' statuses, 32 at a time from the nearest down
+// to the first inclusive prefix.
+template <typename A>
+__device__ A look_back(const unsigned long long* flags,
+                       const unsigned long long* aggs,
+                       const unsigned long long* incls, int64_t tile,
+                       unsigned long long epoch) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int64_t base = 0; base < tiles; base += kCarryThreads) {
-    const int64_t i = base + threadIdx.x;
-    const unsigned long long x = i < tiles ? sums[i] : 0ull;
-    const unsigned long long inc = warp_inclusive_scan(x);
-    if (lane == 31) warp_prefix[warp] = inc;
-    __syncthreads();
-    if (warp == 0) {
-      const unsigned long long t = warp_prefix[lane];
-      warp_prefix[lane] = warp_inclusive_scan(t) - t;
+  A excl = 0;
+  for (int64_t nearest = tile - 1;; nearest -= 32) {
+    const int64_t t = nearest - lane;
+    bool prefix = true;  // before tile 0: an inclusive prefix of 0
+    A value = 0;
+    if (t >= 0) {
+      unsigned long long f;
+      do {
+        f = ld_acquire(&flags[t]);
+      } while ((f >> 2) != epoch || (f & 3) == 0);
+      prefix = (f & 3) == kPrefix;
+      value = static_cast<A>(ld_volatile(prefix ? &incls[t] : &aggs[t]));
     }
-    __syncthreads();
-    const unsigned long long excl = carry + warp_prefix[warp] + inc - x;
-    if (i < tiles) sums[i] = excl;
-    __syncthreads();
-    if (threadIdx.x == kCarryThreads - 1) carry = excl + x;
-    __syncthreads();
+    const unsigned found = __ballot_sync(kFullMask, prefix);
+    const int stop = found ? __ffs(found) - 1 : 31;  // nearest prefix's lane
+    excl += warp_sum(lane <= stop ? value : A(0));
+    if (found) return excl;
   }
 }
 
-// (3) out = inclusive scan of the tile, offset by its carry (null: one tile)
-template <int I>
-__global__ void __launch_bounds__(kThreads)
-tile_scan_kernel(const typename UInt<I>::T* __restrict__ in,
-                 typename UInt<I>::T* __restrict__ out, int64_t n,
-                 const unsigned long long* __restrict__ carries) {
+// element bytes [0, bytes) of a 16-byte vector from global to shared
+// memory without passing through registers; the rest is zero-filled
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+template <int I, bool kVec>
+__global__ void __launch_bounds__(kThreads, kUndeltaBlocksPerSM)
+undelta_kernel(const typename UInt<I>::T* __restrict__ in,
+               typename UInt<I>::T* __restrict__ out, int64_t n, int tail,
+               unsigned long long* ws, int64_t capacity) {
   using T = typename UInt<I>::T;
   using A = Acc<I>;
-  __shared__ A warp_prefix[kWarps];
+  constexpr int V = kVecBytes / I;
+  constexpr int64_t kTileElems = kTileBytes / I;
+  __shared__ uint4 s_tile_data[kThreads * kRows];
+  __shared__ unsigned long long s_tile, s_epoch;
+  __shared__ A s_warp[kWarps];
+  unsigned long long* flags = ws + kHeaderWords;
+  unsigned long long* aggs = flags + capacity;
+  unsigned long long* incls = aggs + capacity;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t seg =
-      static_cast<int64_t>(blockIdx.x) * kTile + warp * (32 * kRowsPerWarp);
-  A row[kRowsPerWarp];
-  A run = 0;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int64_t e = seg + r * 32 + lane;
-    const A v = e < n ? static_cast<A>(in[e]) : A(0);
-    const A s = warp_inclusive_scan(v);
-    row[r] = run + s;
-    run += __shfl_sync(kFullMask, s, 31);
-  }
-  if (lane == 0) warp_prefix[warp] = run;
+
+  if (threadIdx.x == 0) s_tile = atomicAdd(&ws[1], 1ull);
+  if (threadIdx.x == 32) s_epoch = ld_volatile(&ws[0]);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    A acc = carries != nullptr ? static_cast<A>(carries[blockIdx.x]) : A(0);
-    for (int w = 0; w < kWarps; ++w) {
-      const A t = warp_prefix[w];
-      warp_prefix[w] = acc;
-      acc += t;
+  const int64_t tile = static_cast<int64_t>(s_tile);
+  const unsigned long long epoch = s_epoch;
+
+  // this warp's kRows rows of 32 vectors; each thread only ever touches its
+  // own vector of a row (row r at mine[32 * r])
+  const int64_t seg = tile * kTileElems + int64_t{warp} * kRows * 32 * V;
+  uint4* mine = s_tile_data + warp * kRows * 32 + lane;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int64_t e0 = seg + (r * 32 + lane) * V;
+    if constexpr (kVec) {
+      const int64_t left = n - e0;
+      const int bytes = left >= V ? kVecBytes : left > 0 ? static_cast<int>(left) * I : 0;
+      cp_async16(&mine[32 * r], bytes > 0 ? in + e0 : in, bytes);
+    } else {
+      Vec<I> v;
+      load_elements<I>(in, e0, n, v);
+      mine[32 * r] = v.u;
     }
   }
-  __syncthreads();
-  const A off = warp_prefix[warp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int64_t e = seg + r * 32 + lane;
-    if (e < n) out[e] = static_cast<T>(off + row[r]);
+  if constexpr (kVec) {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
   }
+
+  A run = 0;  // the warp's sum over the rows before r
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    Vec<I> v;
+    v.u = mine[32 * r];
+    A s = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s += v.e[j];
+      v.e[j] = static_cast<T>(s);
+    }
+    const A inc = warp_inclusive_scan(s);
+    const A off = run + inc - s;
+#pragma unroll
+    for (int j = 0; j < V; ++j) v.e[j] = static_cast<T>(v.e[j] + off);
+    mine[32 * r] = v.u;
+    run += __shfl_sync(kFullMask, inc, 31);
+  }
+  if (lane == 0) s_warp[warp] = run;
+  __syncthreads();
+
+  if (warp == 0) {
+    const A total = lane < kWarps ? s_warp[lane] : A(0);
+    const A inc = warp_inclusive_scan(total);
+    const A agg = __shfl_sync(kFullMask, inc, kWarps - 1);
+    A excl = 0;
+    if (tile == 0) {
+      if (lane == 0) publish(&flags[0], &incls[0], agg, epoch, kPrefix);
+    } else {
+      if (lane == 0) publish(&flags[tile], &aggs[tile], agg, epoch, kAggregate);
+      excl = look_back<A>(flags, aggs, incls, tile, epoch);
+      if (lane == 0)
+        publish(&flags[tile], &incls[tile], static_cast<A>(excl + agg), epoch,
+                kPrefix);
+    }
+    if (lane < kWarps) s_warp[lane] = excl + inc - total;  // each warp's offset
+  }
+  __syncthreads();
+
+  const A off = s_warp[warp];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    Vec<I> v;
+    v.u = mine[32 * r];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v.e[j] = static_cast<T>(v.e[j] + off);
+    store<I, kVec>(out, seg + (r * 32 + lane) * V, n, v);
+  }
+  if (tile == 0) copy_tail_bytes(in, out, n * I, tail);
+
+  // The last block to finish readies the workspace for the next launch.  No
+  // fence: every block took its ticket and read the epoch before counting
+  // itself done, and the next launch on this stream sees all of this one's
+  // writes once it has ended.
+  if (threadIdx.x == 0 && atomicAdd(&ws[2], 1ull) == gridDim.x - 1) {
+    st_volatile(&ws[1], 0);
+    st_volatile(&ws[2], 0);
+    st_volatile(&ws[0], epoch + 1);
+  }
+}
+
+bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) %
+          kVecBytes) == 0;
+}
+
+template <int I, bool kVec>
+void launch_undelta(unsigned blocks, cudaStream_t s, const void* in, void* out,
+                    int64_t n, int tail, unsigned long long* ws,
+                    int64_t capacity) {
+  using T = typename UInt<I>::T;
+  undelta_kernel<I, kVec><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), n, tail, ws, capacity);
 }
 
 }  // namespace
@@ -177,33 +367,29 @@ extern "C" int rt_delta(const void* in, void* out, int64_t n, int itemsize,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tiles of the undelta scan; the caller passes scratch for that many
-// unsigned 64-bit tile sums when there is more than one.
-extern "C" int64_t rt_undelta_tiles(int64_t n) { return (n + kTile - 1) / kTile; }
-
-// in/out: n*itemsize + tail bytes, element-aligned; scratch: rt_undelta_tiles(n)
-// 64-bit words (unused for a single tile).
+// in/out: n*itemsize + tail bytes, element-aligned; workspace: the calling
+// stream's, 4 + 3*capacity 64-bit words, zeroed when it was made, with
+// capacity >= max(1, ceil(n*itemsize / 32768)) tiles (kernels/delta.py).
 extern "C" int rt_undelta(const void* in, void* out, int64_t n, int itemsize,
-                          int64_t tail, void* scratch, void* stream) {
+                          int64_t tail, void* workspace, int64_t capacity,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    const int64_t tiles = rt_undelta_tiles(n);
-    auto* carries = tiles > 1 ? static_cast<unsigned long long*>(scratch) : nullptr;
-    if (tiles > 1 && carries == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    RT_DISPATCH_ITEMSIZE(itemsize,
-      using T = typename UInt<I>::T;
-      if (carries != nullptr) {
-        tile_sums_kernel<I><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-            static_cast<const T*>(in), carries, n);
-        RT_CHECK_LAUNCH();
-        tile_carries_kernel<<<1, kCarryThreads, 0, s>>>(carries, tiles);
-        RT_CHECK_LAUNCH();
-      }
-      tile_scan_kernel<I><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-          static_cast<const T*>(in), static_cast<T*>(out), n, carries));
-    RT_CHECK_LAUNCH();
-  }
-  const cudaError_t err = copy_tail(in, n * itemsize, out, n * itemsize, tail, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 0 || tail < 0 || tail >= itemsize)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 && tail == 0) return 0;
+  const bool vec = aligned16(in, out);
+  auto* ws = static_cast<unsigned long long*>(workspace);
+  RT_DISPATCH_ITEMSIZE(itemsize,
+    constexpr int64_t per_tile = kTileBytes / I;
+    const int64_t tiles = n > 0 ? (n + per_tile - 1) / per_tile : 1;
+    if (ws == nullptr || tiles > capacity)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>(tiles);
+    const int t = static_cast<int>(tail);
+    if (vec)
+      launch_undelta<I, true>(blocks, s, in, out, n, t, ws, capacity);
+    else
+      launch_undelta<I, false>(blocks, s, in, out, n, t, ws, capacity));
+  RT_CHECK_LAUNCH();
+  return 0;
 }

@@ -28,13 +28,28 @@
 // Bound: data movement.  qpack reads the row and writes a byte per element
 // plus a scale: (itemsize + 1) * R * C + 4 * R bytes; qunpack reads k bytes
 // per element and k scales per row and writes one element.  At 3.35 TB/s a
-// (32768, 2048) float32 qpack takes at least 0.100 ms.
+// (32768, 2048) float32 qpack takes at least 0.100 ms, a k = 1 qunpack to
+// bf16 at least 0.060 ms.  At the serve path's decode shape (4, 2048) the
+// device work is a few kilobytes, and the time of a call is the host's.
 //
-// Design (simple first).  qpack: one warp per row, eight rows per block;
-// lanes stride the row with coalesced loads, a shuffle reduction gives the
-// amax to every lane, and a second pass over the row (now in L1/L2) writes
-// the int8s.  qunpack: a 2-D grid, rows on y and columns on x, one element
-// per thread, so no thread divides to find its row.
+// qpack (simple first): one warp per row, eight rows per block; lanes stride
+// the row with coalesced loads, a shuffle reduction gives the amax to every
+// lane, and a second pass over the row (now in L1/L2) writes the int8s.
+//
+// qunpack: each thread owns 16 consecutive elements of a row.  It reads them
+// with one 16-byte load (ld.global.nc) per k-plane, reads that plane's scale
+// for the row once, and writes two 16-byte vectors (bf16) or four (f32):
+// one load and two stores for 16 elements, where one element a thread
+// would issue a 1-byte load and a 2-byte store each and leave the card
+// issue-bound rather than memory-bound.  The grid's x walks a row's vectors and
+// its y the rows (threadIdx.y packs several short rows into one block), so
+// no thread divides to find its row or column.  Rows whose length is not a
+// multiple of 16, or pointers not 16-byte aligned, take the scalar variant
+// of the same kernel, chosen at launch: a row r starts at byte r * C, so
+// for C = 2047 every row after the first is unaligned.  The gathered
+// payloads of the compressed reduction arrive as one (k * R, C) buffer
+// viewed as (k, R, C): plane j starts at j * R * C, 16-byte aligned
+// whenever C % 16 == 0.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -51,11 +66,6 @@ enum DType { kF32 = 0, kBF16 = 1 };
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 template <typename T>
@@ -89,22 +99,109 @@ qpack_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   if (lane == 0) scale[row] = zero ? zero_scale : s;
 }
 
-template <typename O>
+constexpr int kVec = 16;  // qunpack: elements a thread owns
+
+union Bytes16 {
+  int4 v;
+  int8_t b[kVec];
+};
+
+// acc[i] (+)= q[i] * s over the thread's elements [0, m); the vector variant
+// reads all 16 with one 16-byte load
+template <bool kVector, bool kFirst>
+__device__ __forceinline__ void scaled(const int8_t* __restrict__ q, float s,
+                                       int64_t m, float (&acc)[kVec]) {
+  int8_t b[kVec];
+  if constexpr (kVector) {
+    Bytes16 u;
+    u.v = __ldg(reinterpret_cast<const int4*>(q));
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) b[i] = u.b[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) b[i] = i < m ? q[i] : int8_t(0);
+  }
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const float p = __fmul_rn(static_cast<float>(b[i]), s);
+    if constexpr (kFirst) {
+      acc[i] = p;
+    } else {
+      acc[i] = __fadd_rn(acc[i], p);
+    }
+  }
+}
+
+template <bool kVector>
+__device__ __forceinline__ void store16(float* __restrict__ out, int64_t m,
+                                        const float (&acc)[kVec]) {
+  if constexpr (kVector) {
+#pragma unroll
+    for (int i = 0; i < kVec; i += 4)
+      *reinterpret_cast<float4*>(out + i) =
+          make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (i < m) out[i] = acc[i];
+  }
+}
+
+template <bool kVector>
+__device__ __forceinline__ void store16(__nv_bfloat16* __restrict__ out,
+                                        int64_t m, const float (&acc)[kVec]) {
+  if constexpr (kVector) {
+    union {
+      uint4 v[2];
+      unsigned short h[kVec];
+    } u;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      u.h[i] = __bfloat16_as_ushort(__float2bfloat16_rn(acc[i]));
+    reinterpret_cast<uint4*>(out)[0] = u.v[0];
+    reinterpret_cast<uint4*>(out)[1] = u.v[1];
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (i < m) out[i] = __float2bfloat16_rn(acc[i]);
+  }
+}
+
+// out[r, c] = sum_j q[j, r, c] * scale[j, r]: thread (x, y) of block
+// (bx, by) owns elements [16 * (bx * blockDim.x + x), +16) of the rows
+// by * blockDim.y + y, stepping by gridDim.y * blockDim.y
+template <typename O, bool kVector>
 __global__ void __launch_bounds__(kThreads)
 qunpack_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
                O* __restrict__ out, int64_t k, int64_t rows, int64_t cols) {
+  const int64_t c0 =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * kVec;
+  if (c0 >= cols) return;
+  const int64_t m = cols - c0;  // elements of the row from c0 on
   const int64_t plane = rows * cols;
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= cols) return;
-  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
-    const int64_t i = r * cols + c;
-    float acc = __fmul_rn(static_cast<float>(q[i]), scale[r]);
-    for (int64_t j = 1; j < k; ++j) {
-      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(q[j * plane + i]),
-                                     scale[j * rows + r]));
-    }
-    store(out + i, acc);
+  const int64_t step = static_cast<int64_t>(gridDim.y) * blockDim.y;
+  for (int64_t r = static_cast<int64_t>(blockIdx.y) * blockDim.y + threadIdx.y;
+       r < rows; r += step) {
+    const int64_t at = r * cols + c0;
+    float acc[kVec];
+    scaled<kVector, true>(q + at, __ldg(scale + r), m, acc);
+    for (int64_t j = 1; j < k; ++j)
+      scaled<kVector, false>(q + j * plane + at, __ldg(scale + j * rows + r), m,
+                             acc);
+    store16<kVector>(out + at, m, acc);
   }
+}
+
+// the 16-byte variant when `vector`, else the scalar one
+template <typename O>
+void launch_qunpack(bool vector, dim3 grid, dim3 block, cudaStream_t s,
+                    const int8_t* q, const float* scale, void* out, int64_t k,
+                    int64_t rows, int64_t cols) {
+  O* o = static_cast<O*>(out);
+  if (vector)
+    qunpack_kernel<O, true><<<grid, block, 0, s>>>(q, scale, o, k, rows, cols);
+  else
+    qunpack_kernel<O, false><<<grid, block, 0, s>>>(q, scale, o, k, rows, cols);
 }
 
 }  // namespace
@@ -138,18 +235,26 @@ extern "C" int rt_qunpack(const void* q, const void* scale, void* out,
   if (k <= 0 || rows <= 0 || cols <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(blocks_for(cols, kThreads),
-                  static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY));
+  // x: a row's vectors, up to a whole block; y: as many rows as fill it
+  const int64_t vecs = (cols + kVec - 1) / kVec;
+  unsigned bx = 1;
+  while (bx < vecs && bx < static_cast<unsigned>(kThreads)) bx <<= 1;
+  const unsigned by = kThreads / bx;
+  const int64_t row_blocks = (rows + by - 1) / by;
+  const dim3 grid(blocks_for(vecs, bx),
+                  static_cast<unsigned>(row_blocks < kMaxGridY ? row_blocks : kMaxGridY));
+  const bool vector = cols % kVec == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out)) % 16) == 0;
   const auto* qi = static_cast<const int8_t*>(q);
   const auto* si = static_cast<const float*>(scale);
   switch (out_dtype) {
     case kF32:
-      qunpack_kernel<float><<<grid, kThreads, 0, stream>>>(
-          qi, si, static_cast<float*>(out), k, rows, cols);
+      launch_qunpack<float>(vector, grid, dim3(bx, by), stream, qi, si, out, k,
+                            rows, cols);
       break;
     case kBF16:
-      qunpack_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-          qi, si, static_cast<__nv_bfloat16*>(out), k, rows, cols);
+      launch_qunpack<__nv_bfloat16>(vector, grid, dim3(bx, by), stream, qi, si,
+                                    out, k, rows, cols);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -4,6 +4,11 @@ Replaces the Pallas kernels ``repro/kernels/qpack.py:qpack`` and
 ``:qunpack``: the payload stage of the compressed tensor-parallel reduction
 (``parallel/compressed.py``).  A CPU tensor goes to the plain version in
 ``ref``; a CUDA tensor always launches the kernel.
+
+The serve path calls ``qunpack`` at the decode shape, a few kilobytes,
+where the time of a call is the host's: it checks what guards memory
+(dtype, contiguity, device, shape) in one expression on the fast path, and
+reports which check failed only when one did.
 """
 
 from __future__ import annotations
@@ -41,10 +46,26 @@ def qpack(x: torch.Tensor, zero_scale: float = 0.0):
     q = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     if rows:
-        call(qpack, "rt_qpack", x.device, x.data_ptr(), q.data_ptr(),
+        call(qpack, "rt_qpack", x.get_device(), x.data_ptr(), q.data_ptr(),
              scale.data_ptr(), rows, cols, _DTYPE_CODE[x.dtype],
              float(zero_scale))
     return q, scale
+
+
+def _qunpack_error(q: torch.Tensor, scale: torch.Tensor, dtype) -> None:
+    """Raise the error of the first check that ``qunpack``'s arguments fail
+    (a CPU tensor beside one on a GPU, at the latest)."""
+    _check(q, "qunpack", (2, 3), (torch.int8,))
+    _check(scale, "qunpack scale", (q.dim(),), (torch.float32,))
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"qunpack: dtype must be float32 or bfloat16, got {dtype}")
+    *lead, rows, _ = q.shape
+    if tuple(scale.shape) != (*lead, rows, 1) or scale.device != q.device:
+        raise ValueError(f"qunpack: scale {tuple(scale.shape)} on {scale.device} "
+                         f"does not match q {tuple(q.shape)} on {q.device}")
+    if lead and lead[0] == 0:
+        raise ValueError("qunpack: no payload to sum (k = 0)")
+    raise ValueError(f"qunpack: unsupported devices {q.device} and {scale.device}")
 
 
 def qunpack(q: torch.Tensor, scale: torch.Tensor,
@@ -52,24 +73,25 @@ def qunpack(q: torch.Tensor, scale: torch.Tensor,
     """``q`` int8 (R, C) with ``scale`` (R, 1) -> ``q * scale`` as ``dtype``;
     or k stacked payloads, ``q`` (k, R, C) with ``scale`` (k, R, 1) ->
     their sum over k in float32, cast to ``dtype``."""
-    _check(q, "qunpack", (2, 3), (torch.int8,))
-    _check(scale, "qunpack scale", (q.dim(),), (torch.float32,))
-    if dtype not in _DTYPE_CODE:
-        raise ValueError(f"qunpack: dtype must be float32 or bfloat16, got {dtype}")
-    *lead, rows, cols = q.shape
-    if tuple(scale.shape) != (*lead, rows, 1) or scale.device != q.device:
-        raise ValueError(f"qunpack: scale {tuple(scale.shape)} on {scale.device} "
-                         f"does not match q {tuple(q.shape)} on {q.device}")
-    k = lead[0] if lead else 1
-    if k == 0:
-        raise ValueError("qunpack: no payload to sum (k = 0)")
-    if q.device.type == "cpu":
+    shape = q.shape
+    code = _DTYPE_CODE.get(dtype)
+    if (code is None or q.dtype != torch.int8 or scale.dtype != torch.float32
+            or len(shape) not in (2, 3) or scale.shape != (*shape[:-1], 1)
+            or shape[0] == 0 and len(shape) == 3
+            or not (q.is_contiguous() and scale.is_contiguous())
+            or q.get_device() != scale.get_device()):
+        _qunpack_error(q, scale, dtype)
+    if q.is_cuda:
+        rows, cols = shape[-2:]
+        out = q.new_empty((rows, cols), dtype=dtype)
+        if rows and cols:
+            call(qunpack, "rt_qunpack", q.get_device(), q.data_ptr(),
+                 scale.data_ptr(), out.data_ptr(), shape[0] if len(shape) == 3 else 1,
+                 rows, cols, code)
+        return out
+    if q.is_cpu and scale.is_cpu:
         return ref.qunpack(q, scale, dtype)
-    out = torch.empty((rows, cols), dtype=dtype, device=q.device)
-    if out.numel():
-        call(qunpack, "rt_qunpack", q.device, q.data_ptr(), scale.data_ptr(),
-             out.data_ptr(), k, rows, cols, _DTYPE_CODE[dtype])
-    return out
+    _qunpack_error(q, scale, dtype)
 
 
 qpack.launches = 0
