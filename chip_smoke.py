@@ -19,9 +19,13 @@ runs, failing on the first error:
    beside ``torch.cumsum`` with delta beside ``torch.diff``, pointers I bytes
    off a 16-byte boundary, back-to-back calls of growing size on one
    stream, eight threads on one stream, two streams at once, one device
-   operation and no allocation but the output a call), and for every
-   kernel at its small shape the host microseconds and device operations a
-   call, from the profiler;
+   operation and no allocation but the output a call); bitshuffle and
+   bitunshuffle at their tile edges, misaligned planes, ``out=`` slices and
+   inputs I bytes off a 16-byte boundary, the ``lm_head`` row and a tail
+   alone, timed at the 607 744-byte ``lm_head`` row beside 1 MiB; and for
+   every kernel at its small shape the host microseconds and device
+   operations a call, from the profiler (one for bitshuffle and
+   bitunshuffle, also with a tail);
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
@@ -182,6 +186,12 @@ MAIN_SHAPES = {
 }
 
 
+# the basket the checkpoint path hands the bit shuffles most: one row of
+# qwen3-8b's lm_head, (4096, 151936) f32 (4096 of 6712 launches in phase 4)
+LM_HEAD_ROW = 151936 * 4
+BIT_SHAPES = {"bitshuffle": (4, LM_HEAD_ROW), "bitunshuffle": (4, LM_HEAD_ROW)}
+
+
 def _inputs(name, x, itemsize, K):
     """Arguments for ``name`` on raw bytes ``x`` (planes for bitunshuffle)."""
     if name == "bitunshuffle":
@@ -255,11 +265,11 @@ def phase_kernels(torch, K, ref):
         f"(itemsizes 1/2/4/8, element counts {sizes} + 1 MiB + 100 MB + the "
         f"main path's baskets {sorted(set(MAIN_SHAPES.values()))}, ragged tails)")
 
-    rows = []
+    rows, lm_head = [], {}
     log("kernel        itemsize  bytes        ms        GB/s    bound_ms  "
         "plain_ms  library_ms  d2d_copy_ms")
     for label, shapes in (("1 MiB", {k: (v[0], 1 << 20) for k, v in MAIN_SHAPES.items()}),
-                          ("main", MAIN_SHAPES)):
+                          ("lm_head", BIT_SHAPES), ("main", MAIN_SHAPES)):
         for name, (itemsize, nbytes) in shapes.items():
             kern, plain = pairs[name]
             x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
@@ -288,6 +298,11 @@ def phase_kernels(torch, K, ref):
             log(f"{name:13s} {itemsize:8d}  {nbytes:11d}  {ms:8.4f}  "
                 f"{(b_in + b_out) / ms / 1e6:7.1f}  {bound_ms:8.4f}  "
                 f"{plain_ms:8.4f}  {lib_txt:>10}  {copy_ms:.4f}   [{label}]")
+            if label == "lm_head":
+                lm_head[name] = {"lm_head_bytes": nbytes, "lm_head_ms": ms,
+                                 "lm_head_bound_ms": bound_ms,
+                                 "lm_head_plain_ms": plain_ms,
+                                 "lm_head_d2d_copy_ms": copy_ms}
             if label == "main":
                 rows.append({"name": name, "route": "cuda",
                              "source": SOURCE[name], "replaces": REPLACES[name],
@@ -295,8 +310,65 @@ def phase_kernels(torch, K, ref):
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": "bytes", "library_ms": lib_ms,
                              "itemsize": itemsize, "bytes": nbytes,
-                             "d2d_copy_ms": copy_ms})
+                             "d2d_copy_ms": copy_ms, **lm_head.get(name, {})})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 1, continued: bitshuffle / bitunshuffle at the edges of their design
+# ---------------------------------------------------------------------------
+
+def phase_bitshuffle(torch, K, ref):
+    """bitshuffle and bitunshuffle byte-equal to their plain versions at the
+    sizes their tiles, plane alignment and narrow paths turn on."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    fwd, inv = K["bitshuffle"], K["bitunshuffle"]
+    tile = 1024
+    # tile edges; ceil(N/8) % 4 = 1, 2, 3 (every plane after the first
+    # misaligned; 77 100 is the golden's w)
+    counts = [31, 33, tile - 1, tile + 1, 3 * tile - 1, 3 * tile + 1,
+              149 * tile - 1, 149 * tile + 1, 77_092, 77_100, 77_108]
+    checked = narrow = 0
+
+    def check(what, itemsize, x, at_out):
+        nonlocal checked, narrow
+        n = x.numel() // itemsize
+        planes = ref.bitshuffle(x, itemsize)
+        out_p = _unaligned(torch, torch.empty_like(planes), at_out)
+        in_p = _unaligned(torch, planes, at_out)
+        out_x = _unaligned(torch, torch.empty_like(x), at_out)
+        got = fwd(x, itemsize, out=out_p)
+        back = inv(in_p, itemsize, n * itemsize, out=out_x)
+        want_back = ref.bitunshuffle(planes, itemsize, n * itemsize)
+        torch.cuda.synchronize()
+        if not torch.equal(got, planes):
+            raise AssertionError(f"bitshuffle itemsize={itemsize} {what}: differs")
+        if not (torch.equal(back, want_back) and torch.equal(back, x)):
+            raise AssertionError(f"bitunshuffle itemsize={itemsize} {what}: differs")
+        checked += 2
+        # the launchers' conditions for their narrow paths
+        ragged = (n + 7) // 8 % 4 != 0
+        narrow += (x.data_ptr() % 16 != 0 or ragged or out_p.data_ptr() % 4 != 0)
+        narrow += (ragged or in_p.data_ptr() % 4 != 0 or out_x.data_ptr() % 16 != 0)
+
+    for itemsize in (1, 2, 4, 8):
+        sizes = [n * itemsize + t for n in counts for t in sorted({0, itemsize - 1})]
+        sizes += [LM_HEAD_ROW, LM_HEAD_ROW + itemsize - 1, itemsize - 1]
+        for nbytes in sizes:
+            if nbytes == 0:
+                continue
+            x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device="cuda",
+                              generator=g)
+            check(f"{nbytes} bytes", itemsize, x, 0)
+            # out= slices and the input I bytes past a 16-byte boundary
+            check(f"{nbytes} bytes, out= {itemsize} B off", itemsize, x, itemsize)
+            check(f"{nbytes} bytes, input {itemsize} B off", itemsize,
+                  _unaligned(torch, x, itemsize), 0)
+    log(f"phase 1: {checked} bitshuffle/bitunshuffle runs byte-equal to the plain "
+        f"versions (itemsizes 1/2/4/8, element counts {counts}, the lm_head row "
+        f"of {LM_HEAD_ROW} bytes, a tail alone, ragged tails; out= slices, inputs "
+        f"and planes I bytes past a 16-byte boundary; {narrow} through a narrow "
+        "path)")
 
 
 # ---------------------------------------------------------------------------
@@ -334,15 +406,15 @@ def _quant_input(torch, g, rows, cols, dtype, kind):
 QUNPACK_SLOWEST_MS = 0.120        # (32768, 2048) bf16, k = 1: half its bound's rate
 
 
-def _unaligned(torch, t):
-    """A copy of ``t`` whose data starts one byte past a 16-byte boundary:
-    qunpack's scalar path."""
+def _unaligned(torch, t, at: int = 1):
+    """A copy of ``t`` whose data starts ``at`` bytes past a 16-byte
+    boundary: qunpack's scalar path, the bit shuffles' narrow ones."""
     raw = torch.empty(t.numel() * t.element_size() + 32, dtype=torch.uint8,
                       device=t.device)
-    at = (-raw.data_ptr()) % 16 + 1
-    out = raw[at:at + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    base = (-raw.data_ptr()) % 16 + at
+    out = raw[base:base + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
     out.copy_(t)
-    assert out.data_ptr() % 16 == 1
+    assert out.data_ptr() % 16 == at % 16
     return out
 
 
@@ -666,6 +738,13 @@ def _small_calls(torch, K):
         args = _inputs(name, x, itemsize, K)
         calls[name] = ((lambda f=K[name], a=args: f(*a)),
                        _library_call(name, x, itemsize))
+    # the bit shuffles at the lm_head row, and at 1 MiB with a tail
+    for label, nbytes in (("lm_head", LM_HEAD_ROW), ("+tail", (1 << 20) + 3)):
+        x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device="cuda",
+                          generator=g)
+        for name in ("bitshuffle", "bitunshuffle"):
+            args = _inputs(name, x, 4, K)
+            calls[f"{name} {label}"] = ((lambda f=K[name], a=args: f(*a)), None)
     x = torch.randn(_serve_rows()[1], generator=g, device="cuda")
     q, s = K["qpack"](x, 1.0)
     qk, sk = q[None], s[None]
@@ -680,7 +759,7 @@ def phase_launch_split(torch, K):
     sync), device microseconds and device operations per call (profiler),
     and the same for its one-call PyTorch yardstick."""
     split = {}
-    log("kernel         host_us  device_us  ops/call   library host_us  device_us")
+    log("kernel               host_us  device_us  ops/call   library host_us  device_us")
     for name, (kern, lib) in _small_calls(torch, K).items():
         h = host_us(kern)
         for _ in range(3):              # the profiler may drop an event
@@ -696,9 +775,15 @@ def phase_launch_split(torch, K):
                        library_device_ops_per_call=lops)
             txt = f"{lh:8.2f}  {ld:8.2f} ({lops:g} ops)"
         split[name] = row
-        log(f"{name:13s} {h:8.2f}  {d:9.2f}  {ops_per_call:8g}   {txt}")
-        if name in ("undelta", "qunpack"):
+        log(f"{name:19s} {h:8.2f}  {d:9.2f}  {ops_per_call:8g}   {txt}")
+        kernel = name.split()[0]
+        if kernel in ("undelta", "qunpack"):
             assert ops_per_call == 1 and len(names) == 1, (name, names)
+        if kernel in ("bitshuffle", "bitunshuffle"):
+            # the kernel and nothing else (a memcpy would be a second name, a
+            # second launch two a call); the profiler may drop an event
+            assert len(names) == 1 and f"{kernel}_kernel<" in next(iter(names)) \
+                and 0.9 <= ops_per_call <= 1, (name, names)
     # the small-shape targets, on each side of the call: the host's time to
     # issue it and the device's time to run it
     for name, what in (("undelta", "1 MiB, torch.cumsum"),
@@ -710,6 +795,38 @@ def phase_launch_split(torch, K):
                 f"{lib_us:.2f}: {'met' if us <= lib_us else 'missed'}")
     split["qunpack"]["host_split_us"] = qunpack_host_split(torch, K)
     return split
+
+
+BIT_LARGE_MS = 0.200              # 201 MB, I = 4: 60 % of the bound's rate
+BIT_DEVICE_US = {"bitshuffle": 4.0, "bitunshuffle": 3.60}   # a call at 1 MiB
+
+
+def bitshuffle_targets(rows, split):
+    """The redesigned bit shuffles against their targets: events at 201 MB,
+    device µs a call at 1 MiB and at the lm_head row, and host µs a call at
+    1 MiB beside the other preconditioners' in the same run."""
+    others = [split[k]["host_us"] for k in
+              ("byteshuffle", "byteunshuffle", "delta", "undelta")]
+    for row in rows:
+        name = row["name"]
+        if name not in BIT_DEVICE_US:
+            continue
+        ms = row["ms"]
+        log(f"phase 1: target {name} {row['bytes']} B, I = 4: {ms:.4f} ms vs "
+            f"{BIT_LARGE_MS} ms ({100 * row['bound_ms'] / ms:.0f} % of the "
+            f"{row['bound_ms']:.4f} ms bound; d2d copy {row['d2d_copy_ms']:.4f} "
+            f"ms): {'met' if ms <= BIT_LARGE_MS else 'missed'}")
+        shapes = [("1 MiB", split[name])]
+        if name == "bitshuffle":
+            shapes.append((f"{LM_HEAD_ROW} B", split[f"{name} lm_head"]))
+        for label, r in shapes:
+            us, limit = r["device_us"], BIT_DEVICE_US[name]
+            log(f"phase 1: target {name} {label}, device us a call: {us:.2f} vs "
+                f"{limit}: {'met' if us <= limit else 'missed'}")
+        us = split[name]["host_us"]
+        log(f"phase 1: target {name} 1 MiB, host us a call: {us:.2f} within the "
+            f"other preconditioners' [{min(others):.2f}, {max(others):.2f}]: "
+            f"{'met' if us <= max(others) else 'missed'}")
 
 
 def qunpack_host_split(torch, K, calls: int = 2000, rounds: int = 5) -> dict:
@@ -1201,13 +1318,17 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
         rows = phase_kernels(torch, ops.PRECOND_KERNELS, ref)
+        phase_bitshuffle(torch, ops.KERNELS, ref)
         rows += phase_quant_kernels(torch, ops.KERNELS, ref)
         large = phase_scan(torch, ops.KERNELS, ref)
         split = phase_launch_split(torch, ops.KERNELS)
         for row in rows:
             row["at_small_shape"] = split[row["name"]]
+            if f"{row['name']} lm_head" in split:
+                row["at_lm_head"] = split[f"{row['name']} lm_head"]
             if row["name"] in large:
                 row["at_100mb"] = large[row["name"]]
+        bitshuffle_targets(rows, split)
         phase_golden(torch, np, tmp)
         ops.reset_launch_counts()                      # the main path starts
         events, host_events, _ = phase_events(torch, np, tmp, workers)

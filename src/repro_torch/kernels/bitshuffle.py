@@ -4,6 +4,10 @@ Replaces the Pallas kernels ``repro/kernels/bitshuffle.py:bitshuffle`` and
 ``:bitunshuffle`` with the container's semantics (any element count, planes
 padded to ``ceil(N/8)`` bytes, tail passed through).  A CPU tensor goes to
 the plain version in ``ref``; a CUDA tensor always launches the kernel.
+
+Each call is one launch, its tail included.  A warp owns a tile of
+``TILE_ELEMS`` elements and transposes them in registers; :func:`grid` is
+the launcher's rule for its blocks.
 """
 
 from __future__ import annotations
@@ -13,9 +17,18 @@ from typing import Optional
 import torch
 
 from . import ref
-from ._build import check_bytes, launch, output, require_aligned
+from ._build import call, check_bytes, output, require_aligned
 
-__all__ = ["bitshuffle", "bitunshuffle"]
+__all__ = ["bitshuffle", "bitunshuffle", "grid", "TILE_ELEMS"]
+
+TILE_ELEMS = 1024          # a warp's tile: csrc/bitshuffle.cu kTileElems
+
+
+def grid(n: int) -> int:
+    """Blocks of a launch over ``n`` elements, one warp each: block ``b``
+    owns tile ``b``, elements ``[b * TILE_ELEMS, (b + 1) * TILE_ELEMS)``;
+    a tail alone takes one block."""
+    return max(1, -(-n // TILE_ELEMS))
 
 
 def _planes(n: int, itemsize: int) -> int:
@@ -32,7 +45,9 @@ def bitshuffle(buf: torch.Tensor, itemsize: int,
     if buf.device.type == "cpu":
         return dst.copy_(ref.bitshuffle(buf, itemsize))
     require_aligned(itemsize, "bitshuffle", buf)
-    launch(bitshuffle, "rt_bitshuffle", buf, dst, n, itemsize, tail)
+    if buf.numel():
+        call(bitshuffle, "rt_bitshuffle", buf.get_device(), buf.data_ptr(),
+             dst.data_ptr(), n, itemsize, tail)
     return dst
 
 
@@ -43,14 +58,17 @@ def bitunshuffle(buf: torch.Tensor, itemsize: int, nbytes: int,
     check_bytes(buf, "bitunshuffle")
     n = nbytes // itemsize
     tail = buf.numel() - _planes(n, itemsize)
-    if tail < 0 or nbytes % itemsize:
-        raise ValueError(f"bitunshuffle: {buf.numel()} bytes cannot hold "
-                         f"{nbytes} bytes of {itemsize}-byte elements")
+    if not 0 <= tail < itemsize or nbytes % itemsize:
+        raise ValueError(f"bitunshuffle: {buf.numel()} bytes cannot hold the "
+                         f"planes of {nbytes} bytes of {itemsize}-byte elements "
+                         f"and a tail shorter than an element")
     dst = output(out, n * itemsize + tail, buf, "bitunshuffle")
     if buf.device.type == "cpu":
         return dst.copy_(ref.bitunshuffle(buf, itemsize, nbytes))
     require_aligned(itemsize, "bitunshuffle", dst)
-    launch(bitunshuffle, "rt_bitunshuffle", buf, dst, n, itemsize, tail)
+    if buf.numel():
+        call(bitunshuffle, "rt_bitunshuffle", buf.get_device(), buf.data_ptr(),
+             dst.data_ptr(), n, itemsize, tail)
     return dst
 
 
