@@ -22,10 +22,14 @@ runs, failing on the first error:
    operation and no allocation but the output a call); bitshuffle and
    bitunshuffle at their tile edges, misaligned planes, ``out=`` slices and
    inputs I bytes off a 16-byte boundary, the ``lm_head`` row and a tail
-   alone, timed at the 607 744-byte ``lm_head`` row beside 1 MiB; and for
-   every kernel at its small shape the host microseconds and device
-   operations a call, from the profiler (one for bitshuffle and
-   bitunshuffle, also with a tail);
+   alone, timed at the 607 744-byte ``lm_head`` row beside 1 MiB;
+   byteshuffle and byteunshuffle at their tile edges, N % 16 = 1 ... 15,
+   the golden's N = 77 100, the 911 616-byte ``lm_head`` basket, ragged
+   tails, a tail alone, ``out=`` slices and inputs I bytes off a 16-byte
+   boundary, timed at 100 MB for I = 1, 2, 4, 8 beside
+   ``view().t().contiguous()`` and a copy; and for every kernel at its
+   small shape the host microseconds and device operations a call, from the
+   profiler (one for the bit and byte shuffles, also with a tail);
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
@@ -190,6 +194,10 @@ MAIN_SHAPES = {
 # qwen3-8b's lm_head, (4096, 151936) f32 (4096 of 6712 launches in phase 4)
 LM_HEAD_ROW = 151936 * 4
 BIT_SHAPES = {"bitshuffle": (4, LM_HEAD_ROW), "bitunshuffle": (4, LM_HEAD_ROW)}
+# ... and the byte shuffles most: three rows of lm_head's bf16 moments
+# (2730 of 5268 launches in phase 4)
+LM_HEAD_BASKET = 3 * 151936 * 2
+BYTE_SHAPES = {"byteshuffle": (2, LM_HEAD_BASKET), "byteunshuffle": (2, LM_HEAD_BASKET)}
 
 
 def _inputs(name, x, itemsize, K):
@@ -211,15 +219,16 @@ def _out_bytes(name, nbytes, itemsize):
 
 
 def _library_call(name, x, itemsize):
-    """One PyTorch call computing the same function, where there is one."""
+    """One PyTorch call computing the same function, where there is one (the
+    byte shuffles' transpose leaves a tail out)."""
     import torch
     n = x.numel() // itemsize
+    if name == "byteshuffle":
+        return lambda: x[:n * itemsize].view(n, itemsize).t().contiguous()
+    if name == "byteunshuffle":
+        return lambda: x[:n * itemsize].view(itemsize, n).t().contiguous()
     if x.numel() % itemsize:
         return None
-    if name == "byteshuffle":
-        return lambda: x.view(n, itemsize).t().contiguous()
-    if name == "byteunshuffle":
-        return lambda: x.view(itemsize, n).t().contiguous()
     signed = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     v = x.view(signed[itemsize])
     if name == "undelta":                 # sums kept at the element's width
@@ -265,11 +274,12 @@ def phase_kernels(torch, K, ref):
         f"(itemsizes 1/2/4/8, element counts {sizes} + 1 MiB + 100 MB + the "
         f"main path's baskets {sorted(set(MAIN_SHAPES.values()))}, ragged tails)")
 
-    rows, lm_head = [], {}
+    rows, extra = [], {}
     log("kernel        itemsize  bytes        ms        GB/s    bound_ms  "
         "plain_ms  library_ms  d2d_copy_ms")
     for label, shapes in (("1 MiB", {k: (v[0], 1 << 20) for k, v in MAIN_SHAPES.items()}),
-                          ("lm_head", BIT_SHAPES), ("main", MAIN_SHAPES)):
+                          ("lm_head", BIT_SHAPES), ("basket", BYTE_SHAPES),
+                          ("main", MAIN_SHAPES)):
         for name, (itemsize, nbytes) in shapes.items():
             kern, plain = pairs[name]
             x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
@@ -298,11 +308,13 @@ def phase_kernels(torch, K, ref):
             log(f"{name:13s} {itemsize:8d}  {nbytes:11d}  {ms:8.4f}  "
                 f"{(b_in + b_out) / ms / 1e6:7.1f}  {bound_ms:8.4f}  "
                 f"{plain_ms:8.4f}  {lib_txt:>10}  {copy_ms:.4f}   [{label}]")
-            if label == "lm_head":
-                lm_head[name] = {"lm_head_bytes": nbytes, "lm_head_ms": ms,
-                                 "lm_head_bound_ms": bound_ms,
-                                 "lm_head_plain_ms": plain_ms,
-                                 "lm_head_d2d_copy_ms": copy_ms}
+            if label in ("lm_head", "basket"):
+                extra[name] = {f"{label}_bytes": nbytes, f"{label}_ms": ms,
+                               f"{label}_bound_ms": bound_ms,
+                               f"{label}_plain_ms": plain_ms,
+                               f"{label}_d2d_copy_ms": copy_ms}
+                if lib_ms is not None:
+                    extra[name][f"{label}_library_ms"] = lib_ms
             if label == "main":
                 rows.append({"name": name, "route": "cuda",
                              "source": SOURCE[name], "replaces": REPLACES[name],
@@ -310,7 +322,7 @@ def phase_kernels(torch, K, ref):
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": "bytes", "library_ms": lib_ms,
                              "itemsize": itemsize, "bytes": nbytes,
-                             "d2d_copy_ms": copy_ms, **lm_head.get(name, {})})
+                             "d2d_copy_ms": copy_ms, **extra.get(name, {})})
     return rows
 
 
@@ -369,6 +381,98 @@ def phase_bitshuffle(torch, K, ref):
         f"of {LM_HEAD_ROW} bytes, a tail alone, ragged tails; out= slices, inputs "
         f"and planes I bytes past a 16-byte boundary; {narrow} through a narrow "
         "path)")
+
+
+# ---------------------------------------------------------------------------
+# phase 1, continued: byteshuffle / byteunshuffle at the edges of their design
+# ---------------------------------------------------------------------------
+
+BYTE_LARGE = 100_000_000          # bytes: timed at I = 1, 2, 4, 8
+
+
+def _plane_width(n, ptr):
+    """csrc/byteshuffle.cu plane_width: the planes' access width."""
+    if n % 16 == 0 and ptr % 16 == 0:
+        return 16
+    return 4 if n % 4 == 0 and ptr % 4 == 0 else 1
+
+
+def phase_byteshuffle(torch, K, ref):
+    """byteshuffle and byteunshuffle byte-equal to their plain versions at
+    the sizes their tiles, grid, plane alignment and narrow paths turn on,
+    then timed at 100 MB for every itemsize; returns {name: {itemsize:
+    times}}."""
+    from repro_torch.kernels import byteshuffle as bmod
+    g = torch.Generator(device="cuda").manual_seed(7)
+    fwd, inv = K["byteshuffle"], K["byteunshuffle"]
+    t, wide = bmod.TILE_ELEMS, bmod.WIDE_TILES
+    # tile edges; N % 16 = 1 ... 15 (narrow planes); the golden's w; the
+    # lm_head basket (891 tiles, four warps a block, the last block short);
+    # the grid's switch to four warps a block
+    counts = [1, 15, 16, 17, t - 1, t + 1, 3 * t - 1, 3 * t + 1]
+    counts += [4096 + r for r in range(1, 16)]
+    counts += [77_100, LM_HEAD_BASKET // 2, wide * t - 1, wide * t + 1]
+    checked = narrow = 0
+
+    def check(what, itemsize, x, at_out):
+        nonlocal checked, narrow
+        n = x.numel() // itemsize
+        planes = ref.byteshuffle(x, itemsize)
+        out_p = _unaligned(torch, torch.empty_like(planes), at_out)
+        in_p = _unaligned(torch, planes, at_out)
+        out_x = _unaligned(torch, torch.empty_like(x), at_out)
+        got = fwd(x, itemsize, out=out_p)
+        back = inv(in_p, itemsize, out=out_x)
+        want_back = ref.byteunshuffle(planes, itemsize)
+        torch.cuda.synchronize()
+        if not torch.equal(got, planes):
+            raise AssertionError(f"byteshuffle itemsize={itemsize} {what}: differs")
+        if not (torch.equal(back, want_back) and torch.equal(back, x)):
+            raise AssertionError(f"byteunshuffle itemsize={itemsize} {what}: differs")
+        checked += 2
+        # the launchers' conditions for their narrow paths
+        narrow += x.data_ptr() % 16 != 0 or _plane_width(n, out_p.data_ptr()) != 16
+        narrow += _plane_width(n, in_p.data_ptr()) != 16 or out_x.data_ptr() % 16 != 0
+
+    for itemsize in (1, 2, 4, 8):
+        sizes = [n * itemsize + r for n in counts for r in sorted({0, itemsize - 1})]
+        sizes += [itemsize - 1] if itemsize > 1 else []          # a tail alone
+        for nbytes in sizes:
+            x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device="cuda",
+                              generator=g)
+            check(f"{nbytes} bytes", itemsize, x, 0)
+            # out= slices and the input I bytes past a 16-byte boundary
+            check(f"{nbytes} bytes, out= {itemsize} B off", itemsize, x, itemsize)
+            check(f"{nbytes} bytes, input {itemsize} B off", itemsize,
+                  _unaligned(torch, x, itemsize), 0)
+    log(f"phase 1: {checked} byteshuffle/byteunshuffle runs byte-equal to the "
+        f"plain versions (itemsizes 1/2/4/8, element counts {counts}, a tail "
+        "alone, ragged tails; out= slices, inputs and planes I bytes past a "
+        f"16-byte boundary; {narrow} through a narrow path)")
+
+    large = {"byteshuffle": {}, "byteunshuffle": {}}
+    log("kernel         itemsize  bytes        ms        GB/s    bound_ms  "
+        "library_ms  d2d_copy_ms   (library: view().t().contiguous())")
+    x = torch.randint(0, 256, (BYTE_LARGE,), dtype=torch.uint8, device="cuda",
+                      generator=g)
+    dst = torch.empty_like(x)
+    bound_ms = 2 * BYTE_LARGE / HBM_BYTES_PER_S * 1e3
+    for itemsize in (1, 2, 4, 8):
+        for name in ("byteshuffle", "byteunshuffle"):
+            kern = K[name]
+            got = kern(x, itemsize)
+            torch.cuda.synchronize()
+            if not torch.equal(got, getattr(ref, name)(x, itemsize)):
+                raise AssertionError(f"{name} itemsize={itemsize} [100 MB]: differs")
+            ms, lib_ms = paired_ms(lambda: kern(x, itemsize, out=dst),
+                                   _library_call(name, x, itemsize), 20, 3)
+            copy_ms = cuda_ms(lambda: dst.copy_(x), 20, 3)
+            large[name][itemsize] = {"bytes": BYTE_LARGE, "ms": ms, "library_ms": lib_ms,
+                                     "bound_ms": bound_ms, "d2d_copy_ms": copy_ms}
+            log(f"{name:14s} {itemsize:8d}  {BYTE_LARGE:11d}  {ms:8.4f}  "
+                f"{2 * BYTE_LARGE / ms / 1e6:7.1f}  {bound_ms:8.4f}  {lib_ms:10.4f}  "
+                f"{copy_ms:.4f}   [100 MB]")
+    return large
 
 
 # ---------------------------------------------------------------------------
@@ -745,6 +849,14 @@ def _small_calls(torch, K):
         for name in ("bitshuffle", "bitunshuffle"):
             args = _inputs(name, x, 4, K)
             calls[f"{name} {label}"] = ((lambda f=K[name], a=args: f(*a)), None)
+    # the byte shuffles at the lm_head basket, and with a tail (the
+    # yardstick transposes the elements alone)
+    for label, nbytes in (("main", LM_HEAD_BASKET), ("+tail", LM_HEAD_BASKET + 1)):
+        x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device="cuda",
+                          generator=g)
+        for name in ("byteshuffle", "byteunshuffle"):
+            calls[f"{name} {label}"] = ((lambda f=K[name], a=x: f(a, 2)),
+                                        _library_call(name, x, 2))
     x = torch.randn(_serve_rows()[1], generator=g, device="cuda")
     q, s = K["qpack"](x, 1.0)
     qk, sk = q[None], s[None]
@@ -779,7 +891,7 @@ def phase_launch_split(torch, K):
         kernel = name.split()[0]
         if kernel in ("undelta", "qunpack"):
             assert ops_per_call == 1 and len(names) == 1, (name, names)
-        if kernel in ("bitshuffle", "bitunshuffle"):
+        if kernel in ("bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle"):
             # the kernel and nothing else (a memcpy would be a second name, a
             # second launch two a call); the profiler may drop an event
             assert len(names) == 1 and f"{kernel}_kernel<" in next(iter(names)) \
@@ -827,6 +939,41 @@ def bitshuffle_targets(rows, split):
         log(f"phase 1: target {name} 1 MiB, host us a call: {us:.2f} within the "
             f"other preconditioners' [{min(others):.2f}, {max(others):.2f}]: "
             f"{'met' if us <= max(others) else 'missed'}")
+
+
+BYTE_LARGE_MS = 0.075             # 100.66 MB, I = 2: 80 % of the bound's rate
+BYTE_DEVICE_US = 2.31             # a call at the lm_head basket: PR 14's kernel
+
+
+def byteshuffle_targets(rows, split, large):
+    """The redesigned byte shuffles against their targets: events at
+    100.66 MB, device µs a call at the lm_head basket, and events, host and
+    device µs there against ``view().t().contiguous()`` in the same run."""
+    for row in rows:
+        name = row["name"]
+        if name not in ("byteshuffle", "byteunshuffle"):
+            continue
+        ms = row["ms"]
+        log(f"phase 1: target {name} {row['bytes']} B, I = 2: {ms:.4f} ms vs "
+            f"{BYTE_LARGE_MS} ms ({100 * row['bound_ms'] / ms:.0f} % of the "
+            f"{row['bound_ms']:.4f} ms bound; d2d copy {row['d2d_copy_ms']:.4f} "
+            f"ms): {'met' if ms <= BYTE_LARGE_MS else 'missed'}")
+        for itemsize, r in large[name].items():
+            log(f"phase 1: {name} 100 MB, I = {itemsize}: {r['ms']:.4f} ms "
+                f"({100 * r['bound_ms'] / r['ms']:.0f} % of the bound; d2d copy "
+                f"{r['d2d_copy_ms']:.4f} ms, view().t().contiguous() "
+                f"{r['library_ms']:.4f} ms)")
+        r = split[f"{name} main"]
+        us = r["device_us"]
+        log(f"phase 1: target {name} {LM_HEAD_BASKET} B, device us a call: "
+            f"{us:.2f} vs {BYTE_DEVICE_US}: {'met' if us <= BYTE_DEVICE_US else 'missed'}")
+        for clock, mine, lib, fmt in (
+                ("events ms", row["basket_ms"], row["basket_library_ms"], ".4f"),
+                ("host us", r["host_us"], r["library_host_us"], ".2f"),
+                ("device us", us, r["library_device_us"], ".2f")):
+            log(f"phase 1: target {name} {LM_HEAD_BASKET} B, {clock} a call: "
+                f"{mine:{fmt}} vs view().t().contiguous() {lib:{fmt}}: "
+                f"{'met' if mine <= lib else 'missed'}")
 
 
 def qunpack_host_split(torch, K, calls: int = 2000, rounds: int = 5) -> dict:
@@ -1319,16 +1466,20 @@ def main() -> int:
     try:
         rows = phase_kernels(torch, ops.PRECOND_KERNELS, ref)
         phase_bitshuffle(torch, ops.KERNELS, ref)
+        large = phase_byteshuffle(torch, ops.KERNELS, ref)
         rows += phase_quant_kernels(torch, ops.KERNELS, ref)
-        large = phase_scan(torch, ops.KERNELS, ref)
+        large.update(phase_scan(torch, ops.KERNELS, ref))
         split = phase_launch_split(torch, ops.KERNELS)
         for row in rows:
             row["at_small_shape"] = split[row["name"]]
             if f"{row['name']} lm_head" in split:
                 row["at_lm_head"] = split[f"{row['name']} lm_head"]
+            if f"{row['name']} main" in split:
+                row["at_basket"] = split[f"{row['name']} main"]
             if row["name"] in large:
                 row["at_100mb"] = large[row["name"]]
         bitshuffle_targets(rows, split)
+        byteshuffle_targets(rows, split, large)
         phase_golden(torch, np, tmp)
         ops.reset_launch_counts()                      # the main path starts
         events, host_events, _ = phase_events(torch, np, tmp, workers)

@@ -68,14 +68,6 @@ __device__ __forceinline__ int swizzle(int k) {
   return k ^ ((k >> kSwizzleShift<I>) & 7);
 }
 
-// one 16-byte chunk of 16/I elements, or of four 32-bit words
-template <int I>
-union Chunk {
-  uint4 u;
-  uint32_t w[4];
-  typename UInt<I>::T e[16 / I];
-};
-
 template <int R>
 __device__ __forceinline__ void exchange(uint32_t (&a)[32]) {
   constexpr int j = 16 >> R;
@@ -140,16 +132,6 @@ __device__ __forceinline__ void pack(const uint32_t (&lo)[32],
   }
 }
 
-// element bytes [0, bytes) of a 16-byte chunk from global to shared memory
-// without passing through registers; the rest is zero-filled
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(gmem), "r"(bytes)
-               : "memory");
-}
-
 // bytes [q, q + 4) of a plane of `pb` bytes <- w, little-endian, those
 // before pb only; kWord: one 4-byte store (plane and pb 4-byte aligned)
 template <bool kWord>
@@ -177,14 +159,6 @@ __device__ __forceinline__ uint32_t load_word(const uint8_t* plane, int64_t q,
       if (q + b < pb) w |= static_cast<uint32_t>(__ldg(plane + q + b)) << (8 * b);
     return w;
   }
-}
-
-// the len % I tail: `tail` bytes from in + from to out + to, by the last block
-__device__ __forceinline__ void copy_tail_in_kernel(const uint8_t* in,
-                                                    int64_t from, uint8_t* out,
-                                                    int64_t to, int tail) {
-  if (blockIdx.x == gridDim.x - 1 && static_cast<int>(threadIdx.x) < tail)
-    out[to + threadIdx.x] = in[from + threadIdx.x];
 }
 
 // kVecLoads: `in` 16-byte aligned (cp.async); kWordStores: planes 4-byte
@@ -294,10 +268,6 @@ bitunshuffle_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 }
 
 using Kernel = void (*)(const uint8_t*, uint8_t*, int64_t, int64_t, int);
-
-bool aligned(const void* p, uintptr_t to) {
-  return reinterpret_cast<uintptr_t>(p) % to == 0;
-}
 
 // one block a tile; a tail alone takes one block
 int launch(Kernel k, const void* in, void* out, int64_t n, int64_t tail,

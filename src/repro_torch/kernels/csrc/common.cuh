@@ -45,3 +45,34 @@ inline cudaError_t copy_tail(const void* in, int64_t src_off, void* out,
 inline unsigned blocks_for(int64_t work, int64_t per_block) {
   return static_cast<unsigned>((work + per_block - 1) / per_block);
 }
+
+inline bool aligned(const void* p, uintptr_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to == 0;
+}
+
+// one 16-byte chunk of 16/I elements, or of four 32-bit words
+template <int I>
+union Chunk {
+  uint4 u;
+  uint32_t w[4];
+  typename UInt<I>::T e[16 / I];
+};
+
+// element bytes [0, bytes) of a 16-byte chunk from global to shared memory
+// without passing through registers; the rest is zero-filled
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+// the len % I tail: `tail` bytes from in + from to out + to, by the last
+// block of the launch (tail < 32 <= blockDim.x)
+__device__ __forceinline__ void copy_tail_in_kernel(const uint8_t* in,
+                                                    int64_t from, uint8_t* out,
+                                                    int64_t to, int tail) {
+  if (blockIdx.x == gridDim.x - 1 && static_cast<int>(threadIdx.x) < tail)
+    out[to + threadIdx.x] = in[from + threadIdx.x];
+}

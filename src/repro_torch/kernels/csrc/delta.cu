@@ -218,16 +218,6 @@ __device__ A look_back(const unsigned long long* flags,
   }
 }
 
-// element bytes [0, bytes) of a 16-byte vector from global to shared
-// memory without passing through registers; the rest is zero-filled
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(gmem), "r"(bytes)
-               : "memory");
-}
-
 template <int I, bool kVec>
 __global__ void __launch_bounds__(kThreads, kUndeltaBlocksPerSM)
 undelta_kernel(const typename UInt<I>::T* __restrict__ in,
