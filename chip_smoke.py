@@ -10,10 +10,13 @@ runs, failing on the first error:
 1. every kernel against its plain PyTorch version on the card: the six
    preconditioners byte-equal over itemsizes 1/2/4/8 and ragged sizes up to
    a 100 MB basket, and qpack/qunpack bit-equal over R x C shapes, types,
-   zero rows, .5 ties, the serve path's shapes, k = 1 and 3 and payloads
-   that are not 16-byte aligned, with times beside the memory-bandwidth bound
-   and one-call PyTorch yardsticks (qunpack against ``torch.mul(q, s)`` at
+   zero rows, .5 ties, non-finite rows, the serve path's shapes, k = 1 and 3
+   and payloads that are not 16-byte aligned, with times beside the
+   memory-bandwidth bound and one-call PyTorch yardsticks (qunpack against ``torch.mul(q, s)`` at
    (32768, 2048), the prefill's (256, 2048) and the decode's (4, 2048));
+   qpack at the edges of its launch (C at a block's 32, 128 and 256 threads
+   and at 16 chunks +-1, C % 16 = 1 ... 15, inputs 4 and 8 bytes off a
+   16-byte boundary) and timed at (32768, 2048) in f32 and bf16;
    then undelta under stress (n = 0, a tail alone, one tile and one tile
    plus or minus an element, the wrap mod 2**(8*I), 100 MB baskets timed
    beside ``torch.cumsum`` with delta beside ``torch.diff``, pointers I bytes
@@ -29,7 +32,8 @@ runs, failing on the first error:
    boundary, timed at 100 MB for I = 1, 2, 4, 8 beside
    ``view().t().contiguous()`` and a copy; and for every kernel at its
    small shape the host microseconds and device operations a call, from the
-   profiler (one for the bit and byte shuffles, also with a tail);
+   profiler (one for qpack and the bit and byte shuffles, also with a
+   tail);
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
@@ -504,6 +508,18 @@ def _quant_input(torch, g, rows, cols, dtype, kind):
         k = torch.randint(-126, 126, (rows, cols), generator=g, device="cuda")
         x = (k.float() + 0.5) * (amax * (1.0 / 127.0))
         x[:, :1] = amax
+    elif kind == "nonfinite":
+        # among finite rows: a NaN, +inf, -inf, both infinities, and a
+        # subnormal amax whose scale underflows to 0
+        r = torch.arange(rows, device="cuda")
+        c = torch.randint(0, cols, (rows,), generator=g, device="cuda")
+        x[r[0::6], c[0::6]] = float("nan")
+        x[r[1::6], c[1::6]] = float("inf")
+        x[r[2::6], c[2::6]] = -float("inf")
+        x[r[3::6], c[3::6]] = float("inf")
+        x[r[3::6], (c[3::6] + 1) % cols] = -float("inf")
+        x[4::6] = 0.0
+        x[r[4::6], c[4::6]] = 3e-45
     return x.to(dtype)
 
 
@@ -535,7 +551,7 @@ def phase_quant_kernels(torch, K, ref):
     shapes += _serve_rows()
     checked = unaligned = 0
     for rows, cols in shapes:
-        for kind in ("random", "zeros", "ties", "halfway"):
+        for kind in ("random", "zeros", "ties", "halfway", "nonfinite"):
             if kind in ("ties", "halfway") and (cols < 2 or rows * cols > 1 << 24):
                 continue
             for dtype in types:
@@ -573,7 +589,8 @@ def phase_quant_kernels(torch, K, ref):
     log(f"phase 1: {checked} qpack/qunpack runs bit-equal to their plain versions "
         f"(R x C over {{1, 4, 256, 32768}} x {{1, 7, 2047, 2048, 7168}} and the "
         f"serve path's prefill and decode {_serve_rows()}; f32/bf16 in and out; "
-        f"k = 1, 3; random, zero, tie and halfway rows; zero-row scale 0 and 1; "
+        f"k = 1, 3; random, zero, tie, halfway and non-finite rows; zero-row scale "
+        f"0 and 1; "
         f"{unaligned} qunpack runs with payloads 1 byte off a 16-byte boundary)")
 
     rows_out = []
@@ -643,6 +660,82 @@ def phase_quant_kernels(torch, K, ref):
     for t in targets:
         log(f"phase 1: target {t}")
     return rows_out
+
+
+# ---------------------------------------------------------------------------
+# phase 1, continued: qpack at the edges of its design
+# ---------------------------------------------------------------------------
+
+QPACK_LARGE_MS = 0.134            # (32768, 2048) f32: 75 % of the bound's rate
+QPACK_DEVICE_US = 2.5             # a call at the decode shape (4, 2048)
+
+
+def _qpack_row_elements():
+    """From csrc/qpack.cu: the longest row one chunk holds, a block's
+    threads times a thread's group; longer rows go in chunks."""
+    import math
+    import re
+    with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "qpack.cu")) as f:
+        src = f.read()
+    return math.prod(int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
+                     for name in ("kRowThreads", "kGroup"))
+
+
+def phase_qpack(torch, K, ref):
+    """qpack bit-equal to its plain version where its launch changes path:
+    C at a block's one warp (512), its 128 and 256 threads (2048, 4096: past
+    that, chunks read again) and a row of 16 chunks, each +-1, at R = 3 and
+    at R on each side of the card's 132 SMs; C % 16 = 1 ... 15; inputs 4
+    and 8 bytes past a 16-byte boundary; random, zero, tie, halfway and
+    non-finite rows, zero-row scale 0 and 1.  Then (32768, 2048) f32 and
+    bf16 timed; returns {dtype: times}."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    chunk = _qpack_row_elements()
+    both = (torch.float32, torch.bfloat16)
+    cases = [(rows, cols + d, both) for rows in (3, 131, 133)
+             for cols in (512, chunk // 2, chunk) for d in (-1, 0, 1)]
+    cases += [(3, 16 * chunk + d, both) for d in (-1, 0, 1)]
+    cases += [(rows, chunk // 2 - 16 + r, both) for r in range(1, 16) for rows in (5, 133)]
+    checked = shifted = 0
+    for rows, cols, dtypes in cases:
+        for dtype in dtypes:
+            for kind in ("random", "zeros", "ties", "halfway", "nonfinite"):
+                x = _quant_input(torch, g, rows, cols, dtype, kind)
+                inputs = [(x, "")]
+                if kind in ("random", "nonfinite"):
+                    inputs += [(_unaligned(torch, x, at), f", input {at} B off")
+                               for at in (4, 8)]
+                for xi, note in inputs:
+                    for zero_scale in (0.0, 1.0):
+                        (q, s), (rq, rs) = K["qpack"](xi, zero_scale), ref.qpack(x, zero_scale)
+                        torch.cuda.synchronize()
+                        if not (same_bits(q, rq) and same_bits(s, rs)):
+                            raise AssertionError(
+                                f"qpack {rows}x{cols} {dtype} {kind}{note} zero_scale="
+                                f"{zero_scale}: differs from the plain version")
+                        checked += 1
+                        shifted += bool(note)
+    log(f"phase 1: {checked} qpack runs bit-equal to the plain version at its edges "
+        f"(R = 3, 131, 133 at C = 512, {chunk // 2}, {chunk} +-1; C = {16 * chunk} +-1; "
+        f"C % 16 = 1 ... 15; "
+        f"random, zero, tie, halfway and non-finite rows; zero-row scale 0 and 1; "
+        f"{shifted} with the input 4 or 8 bytes past a 16-byte boundary)")
+    large = {}
+    for dtype in both:
+        x = torch.randn((32768, SERVE_D_MODEL), generator=g, device="cuda").to(dtype)
+        (q, s), (rq, rs) = K["qpack"](x, 1.0), ref.qpack(x, 1.0)
+        torch.cuda.synchronize()
+        if not (same_bits(q, rq) and same_bits(s, rs)):
+            raise AssertionError(f"qpack 32768x{SERVE_D_MODEL} {dtype}: differs")
+        ms = cuda_ms(lambda: K["qpack"](x, 1.0), 100, 5)
+        nbytes = x.numel() * (x.element_size() + 1) + 4 * x.shape[0]
+        name = str(dtype).split(".")[-1]
+        large[name] = {"shape": list(x.shape), "ms": ms,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        log(f"qpack     32768x{SERVE_D_MODEL} {name:8s} {ms:8.4f} ms  "
+            f"{nbytes / ms / 1e6:7.1f} GB/s  bound {large[name]['bound_ms']:.4f} ms "
+            f"({100 * large[name]['bound_ms'] / ms:.0f} %)")
+    return large
 
 
 # ---------------------------------------------------------------------------
@@ -891,6 +984,10 @@ def phase_launch_split(torch, K):
         kernel = name.split()[0]
         if kernel in ("undelta", "qunpack"):
             assert ops_per_call == 1 and len(names) == 1, (name, names)
+        if kernel == "qpack":
+            # the kernel and nothing else; the profiler may drop an event
+            assert len(names) == 1 and "qpack_kernel<" in next(iter(names)) \
+                and 0.9 <= ops_per_call <= 1, (name, names)
         if kernel in ("bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle"):
             # the kernel and nothing else (a memcpy would be a second name, a
             # second launch two a call); the profiler may drop an event
@@ -906,6 +1003,7 @@ def phase_launch_split(torch, K):
             log(f"phase 1: target {name} {what}, {side} us a call: {us:.2f} vs "
                 f"{lib_us:.2f}: {'met' if us <= lib_us else 'missed'}")
     split["qunpack"]["host_split_us"] = qunpack_host_split(torch, K)
+    split["qpack"]["host_split_us"] = qpack_host_split(torch, K)
     return split
 
 
@@ -976,11 +1074,24 @@ def byteshuffle_targets(rows, split, large):
                 f"{'met' if mine <= lib else 'missed'}")
 
 
-def qunpack_host_split(torch, K, calls: int = 2000, rounds: int = 5) -> dict:
+def _host_split(what: str, pieces: dict, calls: int = 2000, rounds: int = 5) -> dict:
+    """Host microseconds a call of each of ``pieces``: medians over
+    ``rounds`` taken in turns."""
+    per = {k: [] for k in pieces}
+    for _ in range(rounds):
+        for name, f in pieces.items():
+            per[name].append(host_us(f, calls, 1))
+    split = {k: sorted(v)[rounds // 2] for k, v in per.items()}
+    log(f"phase 1: {what} host us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()))
+    return split
+
+
+def qunpack_host_split(torch, K) -> dict:
     """Host microseconds a call of the pieces of qunpack's decode-shape call
     beside ``torch.mul(q, s)``: the whole wrapper, its output allocation,
     the shared launch path (``_build.call``) and the launcher alone through
-    ctypes, each with fixed pointers; medians over ``rounds`` taken in turns."""
+    ctypes, each with fixed pointers."""
     from repro_torch.kernels import _build
     x = torch.randn(_serve_rows()[1], generator=torch.Generator(device="cuda")
                     .manual_seed(5), device="cuda")
@@ -989,22 +1100,64 @@ def qunpack_host_split(torch, K, calls: int = 2000, rounds: int = 5) -> dict:
     out = torch.empty(q.shape, dtype=torch.bfloat16, device="cuda")
     args = (qk.data_ptr(), sk.data_ptr(), out.data_ptr(), 1, *q.shape, 1)
     fn, stream = _build._fns["rt_qunpack"], _build.current_stream(0)
-    pieces = {
+    return _host_split("qunpack (4, 2048)", {
         "wrapper": lambda: K["qunpack"](qk, sk, torch.bfloat16),
         "torch.mul(q, s)": lambda: torch.mul(q, s),
         "output allocation": lambda: q.new_empty(q.shape, dtype=torch.bfloat16),
         "_build.call": lambda: _build.call(None, "rt_qunpack", 0, *args,
                                            counted=False),
         "launcher via ctypes": lambda: fn(*args, stream),
-    }
-    per = {k: [] for k in pieces}
-    for _ in range(rounds):
-        for name, f in pieces.items():
-            per[name].append(host_us(f, calls, 1))
-    split = {k: sorted(v)[rounds // 2] for k, v in per.items()}
-    log("phase 1: qunpack (4, 2048) host us a call: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in split.items()))
-    return split
+    })
+
+
+def qpack_host_split(torch, K) -> dict:
+    """The same for qpack's decode-shape call: the whole wrapper beside
+    qunpack's, its two output allocations, ``_build.call`` and the launcher
+    alone through ctypes."""
+    from repro_torch.kernels import _build
+    x = torch.randn(_serve_rows()[1], generator=torch.Generator(device="cuda")
+                    .manual_seed(9), device="cuda")
+    q, s = K["qpack"](x, 1.0)
+    qk, sk = q[None], s[None]
+    args = (x.data_ptr(), q.data_ptr(), s.data_ptr(), *x.shape, 0, 1.0)
+    fn, stream = _build._fns["rt_qpack"], _build.current_stream(0)
+    return _host_split("qpack (4, 2048)", {
+        "wrapper": lambda: K["qpack"](x, 1.0),
+        "qunpack wrapper": lambda: K["qunpack"](qk, sk, torch.bfloat16),
+        "output allocations": lambda: (x.new_empty(x.shape, dtype=torch.int8),
+                                       x.new_empty((x.shape[0], 1), dtype=torch.float32)),
+        "_build.call": lambda: _build.call(None, "rt_qpack", 0, *args, counted=False),
+        "launcher via ctypes": lambda: fn(*args, stream),
+    })
+
+
+def qpack_targets(rows, split, large):
+    """The redesigned qpack against its targets: events at (32768, 2048)
+    f32, and bf16 beside its bound; device µs and operations a call at the
+    decode shape; host µs there against qunpack's in the same run; events
+    at the prefill shape."""
+    row = next(r for r in rows if r["name"] == "qpack")
+    ms, bound = row["ms"], row["bound_ms"]
+    log(f"phase 1: target qpack 32768x{SERVE_D_MODEL} f32, events: {ms:.4f} ms vs "
+        f"{QPACK_LARGE_MS} ms ({100 * bound / ms:.0f} % of the {bound:.4f} ms bound; "
+        f"phase_qpack's run {large['float32']['ms']:.4f} ms): "
+        f"{'met' if ms <= QPACK_LARGE_MS else 'missed'}")
+    b = large["bfloat16"]
+    log(f"phase 1: qpack 32768x{SERVE_D_MODEL} bf16, events: {b['ms']:.4f} ms "
+        f"({100 * b['bound_ms'] / b['ms']:.0f} % of the {b['bound_ms']:.4f} ms bound)")
+    r, u = split["qpack"], split["qunpack"]
+    log(f"phase 1: target qpack (4, 2048) f32, device us a call: {r['device_us']:.2f} vs "
+        f"{QPACK_DEVICE_US}: {'met' if r['device_us'] <= QPACK_DEVICE_US else 'missed'}")
+    log(f"phase 1: target qpack (4, 2048) f32, device operations a call: "
+        f"{r['device_ops_per_call']:g} (asserted): met")
+    log(f"phase 1: target qpack (4, 2048) f32, host us a call: {r['host_us']:.2f} vs "
+        f"qunpack's {u['host_us']:.2f}: {'met' if r['host_us'] <= u['host_us'] else 'missed'}")
+    hs = r["host_split_us"]
+    log(f"phase 1: target qpack (4, 2048) f32, host us a call, wrappers in turns: "
+        f"{hs['wrapper']:.2f} vs qunpack's {hs['qunpack wrapper']:.2f}: "
+        f"{'met' if hs['wrapper'] <= hs['qunpack wrapper'] else 'missed'}")
+    log(f"phase 1: qpack (256, 2048) f32, events: {row['prefill_ms']:.4f} ms "
+        f"(bound {row['prefill_bound_ms']:.4f} ms)")
 
 
 # ---------------------------------------------------------------------------
@@ -1468,6 +1621,7 @@ def main() -> int:
         phase_bitshuffle(torch, ops.KERNELS, ref)
         large = phase_byteshuffle(torch, ops.KERNELS, ref)
         rows += phase_quant_kernels(torch, ops.KERNELS, ref)
+        qpack_large = phase_qpack(torch, ops.KERNELS, ref)
         large.update(phase_scan(torch, ops.KERNELS, ref))
         split = phase_launch_split(torch, ops.KERNELS)
         for row in rows:
@@ -1478,8 +1632,11 @@ def main() -> int:
                 row["at_basket"] = split[f"{row['name']} main"]
             if row["name"] in large:
                 row["at_100mb"] = large[row["name"]]
+            if row["name"] == "qpack":
+                row["at_32768x2048"] = qpack_large
         bitshuffle_targets(rows, split)
         byteshuffle_targets(rows, split, large)
+        qpack_targets(rows, split, qpack_large)
         phase_golden(torch, np, tmp)
         ops.reset_launch_counts()                      # the main path starts
         events, host_events, _ = phase_events(torch, np, tmp, workers)

@@ -5,10 +5,10 @@ Replaces the Pallas kernels ``repro/kernels/qpack.py:qpack`` and
 (``parallel/compressed.py``).  A CPU tensor goes to the plain version in
 ``ref``; a CUDA tensor always launches the kernel.
 
-The serve path calls ``qunpack`` at the decode shape, a few kilobytes,
-where the time of a call is the host's: it checks what guards memory
-(dtype, contiguity, device, shape) in one expression on the fast path, and
-reports which check failed only when one did.
+The serve path calls both at the decode shape, a few kilobytes, where the
+time of a call is the host's: each checks what guards memory (dtype,
+contiguity, device, shape) in one expression on the fast path, and reports
+which check failed only when one did.
 """
 
 from __future__ import annotations
@@ -32,23 +32,35 @@ def _check(t: torch.Tensor, what: str, dims: tuple, dtypes) -> None:
         raise ValueError(f"{what}: unsupported device {t.device}")
 
 
+def _qpack_other(x: torch.Tensor, zero_scale: float):
+    """``qpack`` of what its fast path does not take: a CPU tensor goes to
+    the plain version; anything else raises the error of the first check
+    it fails."""
+    _check(x, "qpack", (2,), _DTYPE_CODE)
+    if x.shape[1] == 0:
+        raise ValueError("qpack: a row needs at least one column")
+    if x.is_cpu:
+        return ref.qpack(x, zero_scale)
+    raise ValueError(f"qpack: unsupported device {x.device}")
+
+
 def qpack(x: torch.Tensor, zero_scale: float = 0.0):
     """``x`` (R, C) float32/bf16 -> (q int8 (R, C), scale float32 (R, 1)),
     ``scale = amax * float32(1/127)`` per row; a row whose scale is 0 stores
     ``zero_scale`` (0 as in the Pallas kernel, 1.0 in the compressed
-    reduction) and q = 0."""
-    _check(x, "qpack", (2,), _DTYPE_CODE)
-    rows, cols = x.shape
-    if cols == 0:
-        raise ValueError("qpack: a row needs at least one column")
-    if x.device.type == "cpu":
-        return ref.qpack(x, zero_scale)
-    q = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
-    scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    reduction) and q = 0.  A row holding a NaN scales NaN, one holding an
+    infinity inf, and its q are 0."""
+    shape = x.shape
+    code = _DTYPE_CODE.get(x.dtype)
+    if (code is None or len(shape) != 2 or not shape[1] or not x.is_cuda
+            or not x.is_contiguous()):
+        return _qpack_other(x, zero_scale)
+    rows, cols = shape
+    q = x.new_empty(shape, dtype=torch.int8)
+    scale = x.new_empty((rows, 1), dtype=torch.float32)
     if rows:
         call(qpack, "rt_qpack", x.get_device(), x.data_ptr(), q.data_ptr(),
-             scale.data_ptr(), rows, cols, _DTYPE_CODE[x.dtype],
-             float(zero_scale))
+             scale.data_ptr(), rows, cols, code, float(zero_scale))
     return q, scale
 
 

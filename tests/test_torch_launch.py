@@ -28,7 +28,7 @@ from repro.kernels import qpack as pqp  # noqa: E402
 from repro.parallel import compressed as jcomp  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import delta as dmod  # noqa: E402
-from repro_torch.kernels.qpack import qunpack  # noqa: E402
+from repro_torch.kernels.qpack import qpack, qunpack  # noqa: E402
 
 CSRC = Path(_build.__file__).resolve().parent / "csrc"
 _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
@@ -186,6 +186,15 @@ def test_undelta_refuses_meta_tensors():
     with pytest.raises(ValueError, match="unsupported device meta"):
         dmod.undelta(torch.zeros(64, dtype=torch.uint8), 8,
                      out=torch.empty(64, dtype=torch.uint8, device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qpack_refuses_meta_tensors(dtype):
+    """A meta tensor passes every check of qpack's fast path but the device."""
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        qpack(torch.zeros(4, 16, dtype=dtype, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        qpack(torch.zeros(4, 16, dtype=dtype, device="meta"), zero_scale=1.0)
 
 
 @pytest.mark.parametrize("where", ["both", "q", "scale"])

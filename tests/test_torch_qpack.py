@@ -21,10 +21,11 @@ import jax.numpy as jnp  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.qpack import qpack as qpack_pallas  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.parallel import compressed as jcomp  # noqa: E402
 from repro.parallel.actctx import activation_context as jax_context  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.qpack import qpack, qunpack  # noqa: E402
 from repro_torch.parallel import (activation_context, one_rank_group,  # noqa: E402
                                   rowparallel_einsum_compressed)
@@ -35,7 +36,7 @@ DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
 
 def _rows(kind: str, rng) -> np.ndarray:
     """float32 rows of one kind: random ragged shapes, exact .5 ties, zero
-    rows among others."""
+    rows among others, non-finite and subnormal rows among others."""
     if kind == "ragged":
         return rng.standard_normal((5, 33)).astype(np.float32) * 3
     if kind == "one":
@@ -58,10 +59,23 @@ def _rows(kind: str, rng) -> np.ndarray:
         s = amax * np.float32(1 / 127)
         k = rng.integers(-126, 126, (8, 63)).astype(np.float32)
         return np.concatenate([amax, (k + 0.5) * s], 1).astype(np.float32)
+    if kind == "nonfinite":
+        # rows 0-4: a NaN, +inf, -inf, both infinities, and a subnormal amax
+        # whose scale amax * float32(1/127) underflows to 0 (a larger
+        # subnormal amax would differ: XLA on the CPU flushes subnormals to
+        # zero, torch does not); rows 5-7 finite
+        x = (rng.standard_normal((8, 33)) * 3).astype(np.float32)
+        x[0, 4] = np.nan
+        x[1, 7] = np.inf
+        x[2, 0] = -np.inf
+        x[3, 31], x[3, 2] = np.inf, -np.inf
+        x[4] = 0.0
+        x[4, [3, 9, 30]] = np.array([3e-45, -4e-45, 1e-45], np.float32)
+        return x
     raise ValueError(kind)
 
 
-KINDS = ["ragged", "one", "ties", "zeros", "halfway"]
+KINDS = ["ragged", "one", "ties", "zeros", "halfway", "nonfinite"]
 
 
 def _pair(kind, dtype, rng):
@@ -114,6 +128,31 @@ def test_qpack_matches_quantize_rows(kind, dtype, rng):
     assert s.numpy().tobytes() == np.asarray(js).tobytes()
     if kind == "zeros":
         assert (s.numpy()[[0, 3, 5]] == 1.0).all() and not q.numpy()[[0, 3, 5]].any()
+
+
+@pytest.mark.parametrize("zero_scale", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_nonfinite_rows_match_the_reference(dtype, zero_scale, rng):
+    """A row holding a NaN scales NaN, one holding an infinity inf, and
+    their q are 0 (every quotient is NaN or 0, and a NaN converts to 0);
+    a row whose scale underflows to 0 keeps the zero-scale rule.  Bit for
+    bit against the Pallas kernel (zero_scale 0) and the compressed
+    reduction's quantizer (zero_scale 1)."""
+    jx, tx = _pair("nonfinite", dtype, rng)
+    q, s = ref.qpack(tx, zero_scale)
+    assert torch.equal(qpack(tx, zero_scale)[0], q)
+    if zero_scale == 0.0:
+        jq, js = qpack_pallas(jx, interpret=True)
+        rq, rs = jax.jit(jref.qpack_ref)(jx)
+        np.testing.assert_array_equal(np.asarray(rq), np.asarray(jq))
+    else:
+        jq, js = jax.jit(jcomp._quantize_rows)(jx)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    assert s.numpy().tobytes() == np.asarray(js).tobytes()
+    s = s.numpy()[:, 0]
+    assert np.isnan(s[0]) and (s[1:4] == np.inf).all() and s[4] == zero_scale
+    assert not q.numpy()[:5].any()
+    assert np.isfinite(s[5:]).all() and (s[5:] > 0).all() and q.numpy()[5:].any()
 
 
 def test_scale_is_the_compiled_references(rng):
