@@ -39,18 +39,32 @@ runs, failing on the first error:
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
    equal bytes from CPU tensors, and the restore is bitwise;
 4. a qwen3-8b train state at full width, depth 1 (params f32, bf16 AdamW
-   moments): save and restore through ``CheckpointManager``, bitwise;
+   moments; its tree from the port's ``Model.param_specs()``): save and
+   restore through ``CheckpointManager``, bitwise; then the depth-1 model
+   on the restored weights cast to bf16 (a prefill of 2 x 64 tokens and 3
+   decode steps), its logits bit-equal to the same calls on the weights
+   before the save;
 5. rwkv6-1.6b served at full width through ``repro_torch.launch.serve``
    with the int8 compressed TP reduction on over a one-rank NCCL group:
    8 requests, greedy; one full-width compressed projection against
    ``torch.matmul``, and the reduced model on the card against the port on
-   the CPU.
+   the CPU;
+6. qwen3-8b served at full width and full depth (36 layers, 8.19 B params,
+   bf16) through ``repro_torch.launch.serve``: 8 requests of 64 tokens, 4
+   slots, 16 new tokens, greedy, after an untimed warm-up run; tok/s,
+   prefill and decode-step times beside the decode step's bound, peak
+   memory, a profiled window; then the KV cache against a longer prefill
+   and a 4096-token prefill with ``q_chunk`` 512 against none (full width,
+   depth 2, float32), and the reduced qwen3-8b and gemma2-9b on the card
+   against the port on the CPU.
 
 Launch counters are zeroed just before phase 3 and read after phase 4 (the
-checkpoint path), and zeroed again just before phase 5's serve run and read
-after it (the serve path).  The second-to-last line is the kernels' JSON
-record, the last line the device record.  Without a CUDA device it prints
-no result and exits 1.
+checkpoint path, whose restored weights then run the dense model), zeroed
+again just before phase 5's serve run and read after it (the rwkv6 serve
+path), and again around phase 6's timed run (the dense serve path, which
+launches none of the port's kernels).  The second-to-last line is the
+kernels' JSON record, the last line the device record.  Without a CUDA
+device it prints no result and exits 1.
 """
 
 import hashlib
@@ -520,6 +534,21 @@ def _quant_input(torch, g, rows, cols, dtype, kind):
         x[r[3::6], (c[3::6] + 1) % cols] = -float("inf")
         x[4::6] = 0.0
         x[r[4::6], c[4::6]] = 3e-45
+    elif kind == "subnormal":
+        # where XLA's flushing of subnormals decides (ROADMAP C 2): a normal
+        # amax whose scale underflows, a subnormal amax, subnormal elements
+        # beside an amax of 127 * FLT_MIN and one step below it, and
+        # subnormals among normal values
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.rand((rows, cols), generator=g, device="cuda") * 2 - 1
+        x[0::5] = u[0::5] * 1e-37
+        x[1::5] = u[1::5] * 1e-40
+        x[2::5] = u[2::5] * tiny
+        x[2::5, 0] = 127 * tiny
+        x[3::5] = u[3::5] * tiny
+        x[3::5, 0] = torch.nextafter(torch.tensor(127 * tiny, device="cuda"),
+                                     torch.tensor(0.0, device="cuda"))
+        x[4::5, ::2] = u[4::5, ::2] * 1e-39
     return x.to(dtype)
 
 
@@ -551,7 +580,7 @@ def phase_quant_kernels(torch, K, ref):
     shapes += _serve_rows()
     checked = unaligned = 0
     for rows, cols in shapes:
-        for kind in ("random", "zeros", "ties", "halfway", "nonfinite"):
+        for kind in ("random", "zeros", "ties", "halfway", "nonfinite", "subnormal"):
             if kind in ("ties", "halfway") and (cols < 2 or rows * cols > 1 << 24):
                 continue
             for dtype in types:
@@ -589,7 +618,8 @@ def phase_quant_kernels(torch, K, ref):
     log(f"phase 1: {checked} qpack/qunpack runs bit-equal to their plain versions "
         f"(R x C over {{1, 4, 256, 32768}} x {{1, 7, 2047, 2048, 7168}} and the "
         f"serve path's prefill and decode {_serve_rows()}; f32/bf16 in and out; "
-        f"k = 1, 3; random, zero, tie, halfway and non-finite rows; zero-row scale "
+        f"k = 1, 3; random, zero, tie, halfway, non-finite and subnormal rows; "
+        f"zero-row scale "
         f"0 and 1; "
         f"{unaligned} qunpack runs with payloads 1 byte off a 16-byte boundary)")
 
@@ -686,9 +716,9 @@ def phase_qpack(torch, K, ref):
     C at a block's one warp (512), its 128 and 256 threads (2048, 4096: past
     that, chunks read again) and a row of 16 chunks, each +-1, at R = 3 and
     at R on each side of the card's 132 SMs; C % 16 = 1 ... 15; inputs 4
-    and 8 bytes past a 16-byte boundary; random, zero, tie, halfway and
-    non-finite rows, zero-row scale 0 and 1.  Then (32768, 2048) f32 and
-    bf16 timed; returns {dtype: times}."""
+    and 8 bytes past a 16-byte boundary; random, zero, tie, halfway,
+    non-finite and subnormal rows, zero-row scale 0 and 1.  Then
+    (32768, 2048) f32 and bf16 timed; returns {dtype: times}."""
     g = torch.Generator(device="cuda").manual_seed(8)
     chunk = _qpack_row_elements()
     both = (torch.float32, torch.bfloat16)
@@ -699,7 +729,8 @@ def phase_qpack(torch, K, ref):
     checked = shifted = 0
     for rows, cols, dtypes in cases:
         for dtype in dtypes:
-            for kind in ("random", "zeros", "ties", "halfway", "nonfinite"):
+            for kind in ("random", "zeros", "ties", "halfway", "nonfinite",
+                         "subnormal"):
                 x = _quant_input(torch, g, rows, cols, dtype, kind)
                 inputs = [(x, "")]
                 if kind in ("random", "nonfinite"):
@@ -718,8 +749,8 @@ def phase_qpack(torch, K, ref):
     log(f"phase 1: {checked} qpack runs bit-equal to the plain version at its edges "
         f"(R = 3, 131, 133 at C = 512, {chunk // 2}, {chunk} +-1; C = {16 * chunk} +-1; "
         f"C % 16 = 1 ... 15; "
-        f"random, zero, tie, halfway and non-finite rows; zero-row scale 0 and 1; "
-        f"{shifted} with the input 4 or 8 bytes past a 16-byte boundary)")
+        f"random, zero, tie, halfway, non-finite and subnormal rows; zero-row "
+        f"scale 0 and 1; {shifted} with the input 4 or 8 bytes past a 16-byte boundary)")
     large = {}
     for dtype in both:
         x = torch.randn((32768, SERVE_D_MODEL), generator=g, device="cuda").to(dtype)
@@ -1246,45 +1277,40 @@ def phase_events(torch, np, tmp, workers):
 # ---------------------------------------------------------------------------
 
 D, H, KV, DH, FF, VOCAB = 4096, 32, 8, 128, 12288, 151936
-# dotted path -> (shape, init): repro's Model.param_specs() for qwen3-8b with
-# n_groups = 1, layer leaves stacked on a leading "layers" axis
-QWEN3_8B_DEPTH1 = {
-    "embed": ((VOCAB, D), "normal"),
-    "final_norm.scale": ((D,), "ones"),
-    "layers.l0.attn.k_norm": ((1, DH), "ones"),
-    "layers.l0.attn.q_norm": ((1, DH), "ones"),
-    "layers.l0.attn.wk": ((1, D, KV, DH), "normal"),
-    "layers.l0.attn.wo": ((1, H, DH, D), "normal"),
-    "layers.l0.attn.wq": ((1, D, H, DH), "normal"),
-    "layers.l0.attn.wv": ((1, D, KV, DH), "normal"),
-    "layers.l0.ffn.w_down": ((1, FF, D), "normal"),
-    "layers.l0.ffn.w_gate": ((1, D, FF), "normal"),
-    "layers.l0.ffn.w_up": ((1, D, FF), "normal"),
-    "layers.l0.ln1.scale": ((1, D), "ones"),
-    "layers.l0.ln2.scale": ((1, D), "ones"),
-    "lm_head": ((D, VOCAB), "normal"),
-}
 
 
-def _nest(flat: dict) -> dict:
-    tree: dict = {}
-    for path, v in flat.items():
-        node = tree
-        parts = path.split(".")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return tree
+def qwen3_8b_depth1_specs():
+    """The port's Model.param_specs() for qwen3-8b with n_groups = 1 (layer
+    leaves stacked on a leading "layers" axis), checked against the widths
+    of the published config: {dotted path: ParamSpec}."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.specs import tree_paths
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=1)
+    specs = tree_paths(Model(cfg).param_specs())
+    attn = {"wq": (1, D, H, DH), "wk": (1, D, KV, DH), "wv": (1, D, KV, DH),
+            "wo": (1, H, DH, D), "q_norm": (1, DH), "k_norm": (1, DH)}
+    want = {"embed": (VOCAB, D), "lm_head": (D, VOCAB), "final_norm.scale": (D,),
+            "layers.l0.ln1.scale": (1, D), "layers.l0.ln2.scale": (1, D),
+            "layers.l0.ffn.w_gate": (1, D, FF), "layers.l0.ffn.w_up": (1, D, FF),
+            "layers.l0.ffn.w_down": (1, FF, D),
+            **{f"layers.l0.attn.{k}": v for k, v in attn.items()}}
+    got = {path: tuple(spec.shape) for path, spec in specs.items()}
+    assert got == want, got
+    return cfg, specs
 
 
-def train_state(torch):
-    """Params as repro's init_params makes them (normal * 1/sqrt(fan_in),
-    fan_in = shape[0]; "ones" constant), bf16 AdamW moments filled with
-    small values of a trained state's size, int32 counters."""
+def train_state(torch, specs):
+    """Params as init_params makes them (normal * 1/sqrt(fan_in), fan_in =
+    shape[0]; "ones" constant), bf16 AdamW moments filled with small values
+    of a trained state's size, int32 counters."""
+    from repro_torch.models.specs import _unflatten
     g = torch.Generator(device="cuda").manual_seed(0)
     params, m, v = {}, {}, {}
-    for path, (shape, init) in QWEN3_8B_DEPTH1.items():
-        if init == "ones":
+    for path, spec in specs.items():
+        shape = tuple(spec.shape)
+        if spec.init == "ones":
             p = torch.ones(shape, dtype=torch.float32, device="cuda")
         else:
             fan_in = shape[0] if len(shape) >= 2 else shape[-1]
@@ -1295,9 +1321,24 @@ def train_state(torch):
         v[path] = (0.05 * grad * grad).to(torch.bfloat16)
         del grad
     one = torch.ones((), dtype=torch.int32, device="cuda")
-    return {"params": _nest(params),
-            "opt": {"m": _nest(m), "v": _nest(v), "count": one.clone()},
+    return {"params": _unflatten(params),
+            "opt": {"m": _unflatten(m), "v": _unflatten(v), "count": one.clone()},
             "step": one.clone()}
+
+
+def run_depth1(torch, model, params):
+    """A prefill of 2 x 64 tokens and 3 greedy decode steps of the depth-1
+    model on ``params`` cast to bf16: the logits of each call."""
+    p = _to(torch, params, torch.bfloat16)
+    tokens = torch.randint(2, VOCAB, (2, 64), generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        logits, cache = model.prefill(p, {"tokens": tokens.cuda()}, 128)
+        out = [logits]
+        for i in range(3):
+            logits, cache = model.decode_step(p, cache, logits.argmax(-1)[:, None], 64 + i)
+            out.append(logits)
+    torch.cuda.synchronize()
+    return out
 
 
 def disk_write_gbps(tmp: str, nbytes: int = 1 << 30) -> float:
@@ -1318,7 +1359,9 @@ def disk_write_gbps(tmp: str, nbytes: int = 1 << 30) -> float:
 def phase_train_state(torch, tmp, workers):
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import _flatten_with_paths
-    state = train_state(torch)
+    from repro_torch.models import Model
+    cfg, specs = qwen3_8b_depth1_specs()
+    state = train_state(torch, specs)
     flat = _flatten_with_paths(state)
     n_params = sum(t.numel() for k, t in flat.items() if k.startswith("params."))
     nbytes = sum(t.numel() * t.element_size() for t in flat.values())
@@ -1344,6 +1387,15 @@ def phase_train_state(torch, tmp, workers):
     back = _flatten_with_paths(restored)
     for k, t in flat.items():
         assert same_bits(back[k], t), k
+    # the restored weights run the model as the saved ones do, bit for bit
+    model = Model(cfg)
+    before = run_depth1(torch, model, state["params"])
+    after = run_depth1(torch, model, restored["params"])
+    for i, (a, b) in enumerate(zip(before, after)):
+        assert a.shape == (2, VOCAB) and torch.isfinite(a).all(), i
+        assert same_bits(a, b), f"call {i}: logits of the restored weights differ"
+    log("phase 4: the depth-1 model on the restored weights (bf16): prefill 2 x 64 "
+        "and 3 decode steps, logits bit-equal to the weights' before the save")
     ratio = stats["raw"] / stats["comp"]
     log(f"phase 4: save {save_s:.3f} s ({nbytes / save_s / 1e9:.3f} GB/s), "
         f"restore {restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s), "
@@ -1413,9 +1465,10 @@ def _span_ms(spans, name):
 
 
 def _profile_window(torch, model, params, group, tokens):
-    """One prefill and three decode steps, compressed TP on, under
-    torch.profiler: wall time, device busy time (kernels on the one stream,
-    summed) and the kernels that take the most of it."""
+    """One prefill and three decode steps under torch.profiler, compressed
+    TP on over ``group`` (none: off): wall time, device busy time (kernels
+    on the one stream, summed) and the kernels that take the most of it."""
+    import contextlib
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import rwkv
     from repro_torch.parallel import activation_context
@@ -1428,9 +1481,10 @@ def _profile_window(torch, model, params, group, tokens):
                                               tokens.shape[1] + i)
         torch.cuda.synchronize()
 
-    rwkv.PERF_FLAGS["compressed_tp"] = True
+    rwkv.PERF_FLAGS["compressed_tp"] = group is not None
+    ctx = activation_context(group) if group is not None else contextlib.nullcontext()
     try:
-        with torch.no_grad(), activation_context(group):
+        with torch.no_grad(), ctx:
             window()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1594,6 +1648,150 @@ def phase_serve(torch, ops):
     return summary, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: qwen3-8b served at full width and full depth
+# ---------------------------------------------------------------------------
+
+DENSE_ARGS = ["--arch", "qwen3-8b", "--requests", "8", "--prompt-len", "64",
+              "--slots", "4", "--max-len", "128", "--max-new", "16"]
+KV_CONSISTENCY_RTOL = 1e-4        # decode after prefill vs one longer prefill
+Q_CHUNK_RTOL = 1e-4               # 4096-token prefill, q_chunk 512 vs 0
+CARD_VS_CPU_RTOL = 3e-2           # the reduced models, as in phase 5
+
+
+def _rel(torch, got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _dense_checks(torch, cfg):
+    """The dense path's three checks at full width: the prompt and one
+    more token decoded a token at a time from a float32 KV cache against
+    one prefill of them all, and query chunking against none (depth 2,
+    float32 params and compute: both sides compute the same function, so
+    only float32 rounding separates them), and the reduced qwen3-8b and
+    gemma2-9b on the card against the port on the CPU (bf16 weights)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    out = {}
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = Model(cfg2)
+    params = model.init(torch.Generator(device="cuda").manual_seed(6))
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(2, cfg.vocab, (2, 64), generator=gen).cuda()
+    tokens = torch.cat([prompt, torch.randint(2, cfg.vocab, (2, 1), generator=gen).cuda()], 1)
+    with torch.no_grad():
+        cache = model.init_cache(2, 128, cache_dtype=torch.float32, device="cuda")
+        for pos in range(tokens.shape[1]):
+            step, cache = model.decode_step(params, cache, tokens[:, pos:pos + 1], pos)
+        longer, _ = model.prefill(params, {"tokens": tokens}, 128)
+    out["kv_cache_rel_err"] = _rel(torch, step, longer)
+    assert torch.isfinite(step).all() and out["kv_cache_rel_err"] < KV_CONSISTENCY_RTOL, out
+    long_prompt = torch.randint(2, cfg.vocab, (1, 4096), generator=gen).cuda()
+    chunked = Model(dataclasses.replace(cfg2, q_chunk=512))
+    with torch.no_grad():
+        h_c, _ = chunked.forward(params, {"tokens": long_prompt})
+        h_p, _ = model.forward(params, {"tokens": long_prompt})
+        l_c, _ = chunked.prefill(params, {"tokens": long_prompt}, 4096)
+        l_p, _ = model.prefill(params, {"tokens": long_prompt}, 4096)
+    out["q_chunk_hidden_rel_err"] = _rel(torch, h_c, h_p)
+    out["q_chunk_logits_rel_err"] = _rel(torch, l_c, l_p)
+    assert torch.isfinite(h_c).all(), "q_chunk hidden states not finite"
+    assert max(out["q_chunk_hidden_rel_err"], out["q_chunk_logits_rel_err"]) \
+        < Q_CHUNK_RTOL, out
+    del params, cache, h_c, h_p
+    torch.cuda.empty_cache()
+    for arch in ("qwen3-8b", "gemma2-9b"):
+        small = Model(reduced(get_config(arch)))
+        p_cpu = small.init(torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+        p_card = _to(torch, p_cpu, "cuda")
+        tokens = torch.randint(2, small.cfg.vocab, (2, 64),
+                               generator=torch.Generator().manual_seed(1))
+        errs = []
+        with torch.no_grad():
+            lg, cache = small.prefill(p_card, {"tokens": tokens.cuda()}, 128)
+            rl, rcache = small.prefill(p_cpu, {"tokens": tokens}, 128)
+            errs.append(_rel(torch, lg, rl))
+            tok = rl.argmax(-1)[:, None]
+            for i in range(3):
+                lg, cache = small.decode_step(p_card, cache, tok.cuda(), 64 + i)
+                rl, rcache = small.decode_step(p_cpu, rcache, tok, 64 + i)
+                errs.append(_rel(torch, lg, rl))
+                tok = rl.argmax(-1)[:, None]
+        assert torch.isfinite(lg).all() and max(errs) < CARD_VS_CPU_RTOL, (arch, errs)
+        out[f"reduced_{arch}_card_vs_cpu_rel_err"] = errs
+    return out
+
+
+def phase_dense_serve(torch, ops):
+    """qwen3-8b at full width and depth through launch.serve: a warm-up
+    run, then the timed one; its bound, a profiled window and the dense
+    path's checks.  Returns (summary, launch counts of the timed run)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.specs import tree_paths
+    args = launch.parse_args(DENSE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = launch.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    leaves = tree_paths(params)
+    n_params = sum(t.numel() for t in leaves.values())
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab) == (36, D, H, KV, FF, VOCAB)
+    log(f"phase 6: {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB "
+        f"bf16 on the card (made in {build_s:.2f} s)")
+    launch.serve(model, params, args, cfg.vocab)     # warm-up, not timed
+    torch.cuda.synchronize()
+    from repro_torch import obs
+    obs.trace.drain()
+    ops.reset_launch_counts()                        # the dense serve path starts
+    out, dt = launch.serve(model, params, args, cfg.vocab)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()                     # the dense serve path ends
+    spans = [e for e in obs.trace.drain() if e["name"].startswith("serve.")]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_req, max_new = int(args.requests), int(args.max_new)
+    assert sorted(out) == list(range(n_req)), sorted(out)
+    for toks in out.values():
+        assert len(toks) == max_new and ((toks >= 0) & (toks < cfg.vocab)).all()
+    n_tok = sum(len(v) for v in out.values())
+    prefill_ms, prefill_med, n_prefill = _span_ms(spans, "serve.prefill")
+    decode_ms, decode_med, n_decode = _span_ms(spans, "serve.decode_step")
+    # a decode step reads every weight once but the embedding rows it gathers
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in leaves.items()
+                       if k != "embed")
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"phase 6: {len(out)} requests, {n_tok} tokens in {dt:.3f} s "
+        f"({n_tok / dt:.1f} tok/s); {n_prefill} prefills of {prefill_ms:.2f} ms mean "
+        f"({prefill_med:.2f} median), {n_decode} decode steps of {decode_ms:.2f} ms "
+        f"mean ({decode_med:.2f} median); decode bound {bound_ms:.2f} ms "
+        f"({weight_bytes / 1e9:.2f} GB of weights but the embedding at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak {peak_gb:.2f} GB; "
+        f"port kernel launches {counts}")
+    prompts = torch.randint(2, cfg.vocab, (int(args.slots), int(args.prompt_len)),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+    prof = _profile_window(torch, model, params, None, prompts)
+    log(f"phase 6: profiled window (1 prefill + 3 decode steps): {prof}")
+    del params, leaves
+    torch.cuda.empty_cache()
+    checks = _dense_checks(torch, cfg)
+    log(f"phase 6: checks (KV cache and q_chunk bound {KV_CONSISTENCY_RTOL}, card vs "
+        f"CPU bound {CARD_VS_CPU_RTOL}, relative Frobenius errors): {checks}")
+    summary = {"requests": len(out), "tokens": n_tok, "wall_s": dt,
+               "tok_s": n_tok / dt, "prefill_ms": prefill_ms,
+               "prefill_median_ms": prefill_med, "prefills": n_prefill,
+               "decode_step_ms": decode_ms, "decode_step_median_ms": decode_med,
+               "decode_steps": n_decode, "decode_bound_ms": bound_ms,
+               "weight_gb_read_a_step": weight_bytes / 1e9, "params": n_params,
+               "peak_gb": peak_gb, "build_s": build_s, "profile": prof,
+               "checks": checks}
+    return summary, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1663,10 +1861,13 @@ def main() -> int:
     for name in ("qpack", "qunpack"):
         assert serve_counts[name] > 0, f"{name} never launched on the serve path"
         counts[name] = serve_counts[name]
+    dense, dense_counts = phase_dense_serve(torch, ops)
+    log(f"launches on the dense serve path: {dense_counts}")
     for row in rows:
         row["launches"] = counts[row["name"]]
     log(json.dumps({"phase3_events": events, "phase4_qwen3_8b_depth1": train,
                     "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
+                    "phase6_serve_qwen3_8b": dense,
                     "card": smi, "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

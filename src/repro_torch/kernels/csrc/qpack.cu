@@ -7,9 +7,18 @@
 //
 //   qpack:    amax = max_c |x[r, c]|, s = amax * float32(1/127),
 //             q[r, c] = clip(rint(x[r, c] / s), -127, 127) as int8,
-//             scale[r] = s; a row whose s is 0 divides by 1 (so q = 0) and
-//             stores `zero_scale` (0 in the Pallas kernel, 1.0 in the
-//             compressed reduction's own quantizer, compressed.py:44).
+//             scale[r] = s.  A subnormal x counts as 0 (q = 0) and a
+//             subnormal s is 0, as in XLA, which flushes subnormals on
+//             the CPU and the TPU alike; the compares against kTiny do
+//             it, not -ftz=true, which would change every float op of
+//             this file, qunpack's too.  A row left without a scale
+//             follows the reference `zero_scale` stands for: with 0 (the
+//             Pallas kernel) a row whose s is 0 divides by 1 (so q = 0)
+//             and stores 0; with another value (the compressed
+//             reduction's own quantizer, compressed.py:44, which tests
+//             amax == 0) a row whose amax is 0 does that and stores
+//             `zero_scale`, and a row whose s alone flushed divides by 0
+//             and stores 0, so q = sign(x) * 127, and 0 where x is 0.
 //             A NaN in the row makes amax and s NaN, an infinity makes
 //             them inf; every quotient is then NaN or 0, and a NaN
 //             quotient converts to 0, as XLA's convert and torch's
@@ -86,6 +95,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int64_t kMaxGridY = 65535;
 constexpr float kInv127 = 1.0f / 127.0f;  // XLA's constant for `/ 127.0`
+constexpr float kTiny = 1.17549435e-38f;  // FLT_MIN: below it XLA flushes to 0
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -186,7 +196,8 @@ __device__ __forceinline__ void load_group(const T* __restrict__ xg, int n,
 }
 
 // q of one element: rint(x / div) clamped to +-127, and a NaN quotient (a
-// NaN in the row, or inf / inf) 0, where fmaxf alone would make it -127
+// NaN in the row, inf / inf, or 0 / 0 where the scale flushed) 0, where
+// fmaxf alone would make it -127
 __device__ __forceinline__ uint32_t quantize(float v, float div) {
   const float r = rintf(__fdiv_rn(v, div));
   if (r != r) return 0u;
@@ -215,6 +226,15 @@ __device__ __forceinline__ void store_group(int8_t* __restrict__ qg, int n,
     for (int i = 0; i < kGroup; ++i)
       if (i < n) qg[i] = static_cast<int8_t>(w[i / 4] >> (8 * (i % 4)));
   }
+}
+
+// XLA's flush of subnormal inputs: each |v| below FLT_MIN becomes 0.  A row
+// needs it only where its divisor is below 2 * FLT_MIN (a subnormal over
+// any larger divisor is under 0.5 and rounds to 0 either way), so the
+// kernel calls this on those rare rows alone, not an element at a time
+__device__ __forceinline__ void flush_subnormals(float (&v)[kGroup]) {
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) v[i] = fabsf(v[i]) < kTiny ? 0.0f : v[i];
 }
 
 // max |v| over a group, NaN if any is: a tree
@@ -266,14 +286,18 @@ qpack_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
       amax = max_nan(amax, abs_max(v));
     }
     amax = block_max(amax, red);
-    const float s = __fmul_rn(amax, kInv127);
-    const bool zero = s == 0.0f;
+    const float p = __fmul_rn(amax, kInv127);
+    const float s = p < kTiny ? 0.0f : p;  // NaN stays
+    // the row's zero rule: the scale's (Pallas) or the amax's (compressed)
+    const bool zero = (zero_scale == 0.0f ? p : amax) < kTiny;
     const float div = zero ? 1.0f : s;
+    const bool flush = div < 2.0f * kTiny;  // rare: see flush_subnormals
     int8_t* qr = q + row * cols + c0;
     // the last chunk is still in registers; the others are read again
     for (int64_t c = io.chunks - 1; c >= 0; --c) {
       const int n = in_row(cols - c0 - c * chunk);
       if (c != io.chunks - 1) load_group<kWide>(xr + c * chunk, n, io.vector_loads, v);
+      if (flush) flush_subnormals(v);
       if (n > 0) store_group<kWide>(qr + c * chunk, n, io.store_width, div, v);
     }
     if (threadIdx.x == 0) scale[row] = zero ? zero_scale : s;

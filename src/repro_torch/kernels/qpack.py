@@ -46,10 +46,12 @@ def _qpack_other(x: torch.Tensor, zero_scale: float):
 
 def qpack(x: torch.Tensor, zero_scale: float = 0.0):
     """``x`` (R, C) float32/bf16 -> (q int8 (R, C), scale float32 (R, 1)),
-    ``scale = amax * float32(1/127)`` per row; a row whose scale is 0 stores
-    ``zero_scale`` (0 as in the Pallas kernel, 1.0 in the compressed
-    reduction) and q = 0.  A row holding a NaN scales NaN, one holding an
-    infinity inf, and its q are 0."""
+    ``scale = amax * float32(1/127)`` per row, with subnormal elements
+    and scales flushed to 0 as XLA flushes them.  A row left without a
+    scale follows the reference ``zero_scale`` stands for (``ref.qpack``):
+    0, the Pallas kernel's, where a zero scale stores 0 and q = 0; 1.0, the
+    compressed reduction's, where a zero amax stores 1.0 and q = 0.  A row
+    holding a NaN scales NaN, one holding an infinity inf, and its q are 0."""
     shape = x.shape
     code = _DTYPE_CODE.get(x.dtype)
     if (code is None or len(shape) != 2 or not shape[1] or not x.is_cuda

@@ -112,16 +112,29 @@ def undelta(buf: torch.Tensor, itemsize: int) -> torch.Tensor:
 
 def qpack(x: torch.Tensor, zero_scale: float = 0.0):
     """(R, C) float -> (q int8 (R, C), scale float32 (R, 1)): scale =
-    amax * float32(1/127) (``zero_scale`` where that is 0), q =
-    clip(round_half_even(x / scale), -127, 127), dividing by 1 where the
-    scale is 0.  The scale is a product, not ``amax / 127``, because that
-    is what the reference computes once XLA has compiled it (it rewrites
-    a division by a constant); ``x / scale`` stays a true division."""
+    amax * float32(1/127), q = clip(round_half_even(x / scale), -127, 127).
+    The scale is a product, not ``amax / 127``, because that is what the
+    reference computes once XLA has compiled it (it rewrites a division by
+    a constant); ``x / scale`` stays a true division.
+
+    Subnormal elements and a subnormal scale count as 0, as in XLA (on the
+    CPU and the TPU alike).  A row left without a scale follows the
+    reference that ``zero_scale`` stands for.  With 0, the Pallas kernel and
+    ``qpack_ref``: a row whose scale is 0 stores 0 and q = 0.  With any
+    other value, ``_quantize_rows``, which tests the amax: a row whose amax
+    is 0 stores ``zero_scale`` and q = 0; one whose scale alone flushed
+    stores 0 and divides by it, so q = sign(x) * 127, and 0 where x is 0.
+    A NaN quotient converts to 0."""
     xf = x.float()
+    tiny = torch.finfo(torch.float32).tiny
+    xf = torch.where(xf.abs() < tiny, 0.0, xf)
+    amax = xf.abs().amax(dim=1, keepdim=True)
     # the Python float is rounded to float32, the op's type: XLA's constant
-    s = xf.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0)
-    zero = s == 0
+    s = amax * (1.0 / 127.0)
+    s = torch.where(s < tiny, 0.0, s)
+    zero = (s if zero_scale == 0 else amax) == 0
     q = torch.round(xf / torch.where(zero, 1.0, s)).clamp_(-127, 127)
+    q = torch.nan_to_num_(q, nan=0.0)
     return q.to(torch.int8), torch.where(zero, zero_scale, s)
 
 

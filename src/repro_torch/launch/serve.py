@@ -4,12 +4,15 @@ The port of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked).  Weights are
 random, drawn on the device from a generator seeded with 0 and cast to
 bf16, as the reference's are; prompts come from numpy's generator seeded
-with 0.  The int8 compressed tensor-parallel reduction is switched on as
-in the reference: ``models.rwkv.PERF_FLAGS["compressed_tp"]`` plus an
-active ``parallel.activation_context``.
+with 0.  The dense attention archs (qwen3-8b, the default, qwen2.5-14b,
+stablelm-12b, gemma2-9b, paligemma-3b without its image prefix) and
+rwkv6-1.6b serve; the other families raise ``NotImplementedError``
+(ROADMAP A2).  ``--ckpt-dir`` exits with an error, as in the reference.  The int8 compressed tensor-parallel reduction (RWKV only) is
+switched on as in the reference: ``models.rwkv.PERF_FLAGS["compressed_tp"]``
+plus an active ``parallel.activation_context``.
 
-Usage (on the card):
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+Usage (on the card; ``--reduced --device cpu`` on the CPU):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         --requests 8 --prompt-len 64 --max-new 16
 """
 

@@ -1,31 +1,48 @@
-"""Transformer building blocks of the port: so far only what RWKV-6 needs.
+"""Transformer building blocks of the port: norms, RoPE, GQA attention and
+the dense FFN.
 
-``norm_specs`` and ``rms_norm`` are the reference's
-(``repro/models/layers.py:40`` and ``:60-81``, the baseline branch).
-Attention, RoPE and the dense FFN arrive with the other model families
-(ROADMAP A4); calling them raises ``NotImplementedError``.
+The port of ``repro/models/layers.py``, op for op and cast for cast.  All
+functions are pure: ``(params, inputs, cfg) -> outputs``; each block has a
+``*_specs`` twin with the reference's parameter layouts and paths (``wq``
+is ``(d, H, Dh)``, ``wo`` ``(H, Dh, d)``), so a checkpoint of either
+package loads into either model by name.
+
+Attention covers every variant behind the reference's flags: GQA with any
+number of kv heads (head h reads kv head ``h // G``, MQA with one), qk-norm,
+QKV bias, the logit softcap, the causal, sliding-window, prefix-LM and
+bidirectional masks, a KV cache built by the prefill and written by each
+decode step, the static cross cache (``update_cache=False``) and
+query-chunked scoring for long prefills.  The softmax is the reference's
+explicit one, in float32 over float32 scores: a fully masked row gives
+zeros (``F.scaled_dot_product_attention`` gives NaN) and the softcap sits
+between the scores and the mask.  The scores are float32 products, so they
+need TF32 off, PyTorch's default (``torch.backends.cuda.matmul.allow_tf32``).
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
+import torch
+import torch.nn.functional as F
+
+from ..parallel.actctx import constrain
 from .specs import ParamSpec
 
 __all__ = ["rms_norm", "norm_specs", "rope", "attn_specs", "attention",
            "ffn_specs", "ffn", "not_ported"]
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port serves rwkv6 only (ROADMAP A4)")
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def norm_specs(d_model: int) -> dict:
     return {"scale": ParamSpec((d_model,), ("embed",), init="ones")}
 
 
-# the reference's §Perf variants; the port has the baseline numerics only
+# the reference's §Perf variants (off by default there too); the port has
+# the baseline numerics only
 PERF_FLAGS = {"rms_einsum": False, "softmax_bf16_probs": False}
 
 
@@ -33,7 +50,7 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6,
              zero_centered: bool = False) -> torch.Tensor:
     """RMSNorm with float32 statistics over a float32 copy of ``x``."""
     if PERF_FLAGS["rms_einsum"]:
-        raise not_ported("rms_norm's rms_einsum variant")
+        raise not_ported("rms_norm's rms_einsum variant", "A12")
     dt = x.dtype
     scale = p["scale"].float()
     if zero_centered:
@@ -44,21 +61,218 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6,
     return (xn * scale).to(dt)
 
 
-def rope(*args, **kwargs):
-    raise not_ported("rope")
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding in float32.  x: (B, S, H, D) (D even), positions:
+    (B, S)."""
+    half = x.shape[-1] // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
+                      exps)
+    ang = positions[..., None].float() * freqs                  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
-def attn_specs(*args, **kwargs):
-    raise not_ported("attention")
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attn_specs(cfg, cross: bool = False) -> dict:
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    sp = {
+        "wq": ParamSpec((d, H, Dh), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, Dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias and not cross:
+        sp["bq"] = ParamSpec((H, Dh), ("heads", "head_dim"), init="zeros")
+        sp["bk"] = ParamSpec((KV, Dh), ("kv_heads", "head_dim"), init="zeros")
+        sp["bv"] = ParamSpec((KV, Dh), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm:
+        sp["q_norm"] = ParamSpec((Dh,), (None,), init="ones")
+        sp["k_norm"] = ParamSpec((Dh,), (None,), init="ones")
+    return sp
 
 
-def attention(*args, **kwargs):
-    raise not_ported("attention")
+def _mask_bias(mode: str, q_pos: torch.Tensor, k_pos: torch.Tensor,
+               window: int = 0, prefix_len: int = 0,
+               k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Additive mask (B?, S_q, S_k) in float32: 0 = attend, -inf = blocked."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    if mode == "bidir":
+        ok = torch.ones_like(q + k, dtype=torch.bool)
+    elif mode == "causal":
+        ok = k <= q
+    elif mode == "sliding":
+        ok = (k <= q) & (k > q - window)
+    elif mode == "prefix":
+        # bidirectional within the first prefix_len positions, causal after
+        ok = (k <= q) | (k < prefix_len)
+    else:
+        raise ValueError(mode)
+    if k_valid is not None:
+        ok = ok & k_valid[..., None, :]
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=ok.device).masked_fill_(~ok, float("-inf"))
 
 
-def ffn_specs(*args, **kwargs):
-    raise not_ported("the dense FFN")
+def _scores_softmax_values(q, k, v, bias, softcap: float, scale: float):
+    """q: (B,S,KV,G,D), k/v: (B,T,KV,D), bias: (B,S,T).  Returns
+    (B,S,KV,G,D) float32."""
+    if PERF_FLAGS["softmax_bf16_probs"]:
+        raise not_ported("bf16 softmax probabilities (softmax_bf16_probs)", "A12")
+    s = torch.einsum("bskgd,btkd->bkgst", q.float() * scale, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + bias[:, None, None, :, :]
+    m = torch.amax(s, dim=-1, keepdim=True).clamp_min(-1e30)  # fully masked rows
+    p = torch.exp(s - m)
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    p = p / denom.clamp_min(1e-30)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.float())
 
 
-def ffn(*args, **kwargs):
-    raise not_ported("the dense FFN")
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    d, h, dk = w.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(d, h * dk)).unflatten(-1, (h, dk))
+
+
+def attention(p: dict, x: torch.Tensor, cfg, *,
+              mode: str = "causal",
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[dict] = None,
+              cache_pos: Optional[int] = None,
+              update_cache: bool = True,
+              build_cache: int = 0,
+              cache_dtype=torch.bfloat16,
+              kv_input: Optional[torch.Tensor] = None,
+              window: int = 0,
+              prefix_len: int = 0,
+              q_chunk: int = 0) -> tuple[torch.Tensor, Optional[dict]]:
+    """GQA attention.  Returns (out (B,S,d), cache-or-None).
+
+    * training: cache None, build_cache 0 -> full self-attention over x.
+    * prefill: build_cache = max_len -> also returns {"k","v"} of
+      (B, max_len, KV, D), zero but for this sequence's (roped) kv at
+      positions 0..S-1.
+    * decode: cache {"k","v"} (B, T, KV, D); x is (B, 1, d); cache_pos a
+      Python int — this step's kv is written into the cache at that slot,
+      in place (the cache returned is the one given), and the step attends
+      over slots 0..cache_pos.
+    * cross-attention: kv_input (B, T, d) (encoder output, training) or
+      cache given with update_cache=False (decode over a static encoder kv:
+      no rope, every slot valid).
+    """
+    B, S, d = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KV
+    cdt = x.dtype
+    scale = Dh ** -0.5
+    static = cache is not None and not update_cache
+    is_cross = kv_input is not None or static
+
+    q = constrain(_project(x, p["wq"]), ("dp", None, "tp", None))
+    k = v = None                          # a static cross cache: kv precomputed
+    if not static:
+        kv_src = kv_input if kv_input is not None else x
+        k = constrain(_project(kv_src, p["wk"]), ("dp", None, "tp", None))
+        v = constrain(_project(kv_src, p["wv"]), ("dp", None, "tp", None))
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+        if k is not None:
+            k = k + p["bk"].to(cdt)
+            v = v + p["bv"].to(cdt)
+    if cfg.qk_norm:
+        q = rms_norm({"scale": p["q_norm"]}, q, cfg.norm_eps)
+        if k is not None:
+            k = rms_norm({"scale": p["k_norm"]}, k, cfg.norm_eps)
+
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+    if not is_cross and cfg.rope_theta > 0:           # no rope on cross-attn
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    q5 = q.reshape(B, S, KV, G, Dh)
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        T = ck.shape[1]
+        k_pos = torch.arange(T, device=x.device)[None]               # (1, T)
+        if update_cache:
+            # decode: this step's kv into the cache at cache_pos
+            ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+            k_valid = k_pos <= cache_pos
+            if mode == "sliding" and window:
+                k_valid = k_valid & (k_pos > cache_pos - window)
+        else:
+            k_valid = torch.ones_like(k_pos, dtype=torch.bool)
+        new_cache = cache
+        bias = torch.zeros(k_valid.shape, dtype=torch.float32, device=x.device)
+        bias = bias.masked_fill_(~k_valid, float("-inf"))[:, None, :]
+        out = _scores_softmax_values(q5, ck.to(cdt), cv.to(cdt),
+                                     bias.expand(B, S, T), cfg.attn_softcap, scale)
+    else:
+        k_pos_full = positions if kv_input is None else torch.arange(
+            k.shape[1], dtype=torch.int32, device=x.device)[None].expand(B, -1)
+        if q_chunk and S > q_chunk and S % q_chunk == 0:
+            # flash-style: a bias a chunk, so no (S, S) mask materializes
+            out = torch.empty((B, S, KV, G, Dh), dtype=torch.float32,
+                              device=x.device)
+            for lo in range(0, S, q_chunk):
+                hi = lo + q_chunk
+                bb = _mask_bias(mode, positions[:, lo:hi], k_pos_full,
+                                window=window, prefix_len=prefix_len)  # (B,c,T)
+                out[:, lo:hi] = _scores_softmax_values(
+                    q5[:, lo:hi], k, v, bb, cfg.attn_softcap, scale)
+        else:
+            bias_full = _mask_bias(mode, positions, k_pos_full, window=window,
+                                   prefix_len=prefix_len)             # (B,S,T)
+            out = _scores_softmax_values(q5, k, v, bias_full, cfg.attn_softcap,
+                                         scale)
+        if build_cache:
+            shape = (B, build_cache, KV, Dh)
+            zk = torch.zeros(shape, dtype=cache_dtype, device=x.device)
+            zv = torch.zeros(shape, dtype=cache_dtype, device=x.device)
+            zk[:, :k.shape[1]] = k.to(cache_dtype)
+            zv[:, :v.shape[1]] = v.to(cache_dtype)
+            new_cache = {"k": zk, "v": zv}
+
+    out = out.to(cdt).reshape(B, S, H * Dh)
+    proj = torch.matmul(out, p["wo"].to(cdt).reshape(H * Dh, d))
+    return proj, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def ffn_specs(d_model: int, d_ff: int) -> dict:
+    return {
+        "w_gate": ParamSpec((d_model, d_ff), ("embed", "ff")),
+        "w_up": ParamSpec((d_model, d_ff), ("embed", "ff")),
+        "w_down": ParamSpec((d_ff, d_model), ("ff", "embed")),
+    }
+
+
+def ffn(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    cdt = x.dtype
+    g = constrain(torch.matmul(x, p["w_gate"].to(cdt)), ("dp", None, "tp"))
+    u = constrain(torch.matmul(x, p["w_up"].to(cdt)), ("dp", None, "tp"))
+    if act == "gelu":
+        g = F.gelu(g.float(), approximate="tanh").to(cdt)
+    else:
+        g = F.silu(g.float()).to(cdt)
+    return torch.matmul(g * u, p["w_down"].to(cdt))

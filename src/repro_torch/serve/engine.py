@@ -3,9 +3,13 @@
 The port of ``repro/serve/engine.py``: a fixed pool of B cache slots,
 prefill and decode steps of one model, finished slots refilled from the
 queue (continuous batching).  Decode state is one group-stacked cache tree
-so one ``decode_step`` serves all slots.  Prompts admitted together are
-left-padded with token 0 to one length and prefilled as they are (the pad
-runs through the recurrence, as in the reference).
+(a KV cache for attention layers, the recurrent state for RWKV ones) so
+one ``decode_step`` serves all slots; a prefill's rows are copied into the
+slots it fills, and each decode step writes its keys and values into the
+KV cache in place and returns new recurrent states.  Prompts
+admitted together are left-padded with token 0 to one length and
+prefilled as they are: the pad is attended to, or runs through the
+recurrence, as in the reference.
 
 The engine runs where the parameters live.  Greedy decoding is exact;
 temperature sampling draws from an explicit ``torch.Generator`` seeded

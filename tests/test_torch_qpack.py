@@ -22,6 +22,7 @@ import torch.distributed as dist  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.qpack import qpack as qpack_pallas  # noqa: E402
+from repro.kernels.qpack import qunpack as qunpack_pallas  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.parallel import compressed as jcomp  # noqa: E402
 from repro.parallel.actctx import activation_context as jax_context  # noqa: E402
@@ -61,9 +62,7 @@ def _rows(kind: str, rng) -> np.ndarray:
         return np.concatenate([amax, (k + 0.5) * s], 1).astype(np.float32)
     if kind == "nonfinite":
         # rows 0-4: a NaN, +inf, -inf, both infinities, and a subnormal amax
-        # whose scale amax * float32(1/127) underflows to 0 (a larger
-        # subnormal amax would differ: XLA on the CPU flushes subnormals to
-        # zero, torch does not); rows 5-7 finite
+        # whose scale amax * float32(1/127) underflows to 0; rows 5-7 finite
         x = (rng.standard_normal((8, 33)) * 3).astype(np.float32)
         x[0, 4] = np.nan
         x[1, 7] = np.inf
@@ -72,10 +71,35 @@ def _rows(kind: str, rng) -> np.ndarray:
         x[4] = 0.0
         x[4, [3, 9, 30]] = np.array([3e-45, -4e-45, 1e-45], np.float32)
         return x
+    if kind == "subnormal":
+        return _subnormal_rows()
     raise ValueError(kind)
 
 
-KINDS = ["ragged", "one", "ties", "zeros", "halfway", "nonfinite"]
+TINY = np.finfo(np.float32).tiny      # FLT_MIN, 2**-126
+
+
+def _subnormal_rows() -> np.ndarray:
+    """Rows where XLA's flushing of subnormals to zero decides the result:
+    0 an underflowing scale (a normal amax below 127 * FLT_MIN), 1 a
+    subnormal amax, 2 subnormal elements beside a normal amax (equal
+    without flushing), 3 a plain row, 4-5 subnormal elements beside an amax
+    of 127 * FLT_MIN and just above it (0.9 * FLT_MIN / FLT_MIN rounds to 1
+    unless flushed), 6 an amax one step below 127 * FLT_MIN, 7 negative
+    subnormals only."""
+    return np.array([
+        [1e-37, 5e-38, 0.0, -3.3e-38],
+        [1e-40, 0.0, 0.0, 0.0],
+        [1e-30, 1e-39, 0.0, 2e-31],
+        [1.0, 2.0, -3.0, 0.5],
+        [127 * TINY, 0.9 * TINY, -0.6 * TINY, 0.4 * TINY],
+        [127 * TINY * 1.01, 0.9 * TINY, -0.6 * TINY, 0.5 * TINY],
+        [np.nextafter(np.float32(127 * TINY), np.float32(0)), 1e-39, 0.0, -2.0 * TINY],
+        [-1e-40, -3e-39, 0.0, -1e-45],
+    ], np.float32)
+
+
+KINDS = ["ragged", "one", "ties", "zeros", "halfway", "nonfinite", "subnormal"]
 
 
 def _pair(kind, dtype, rng):
@@ -153,6 +177,55 @@ def test_nonfinite_rows_match_the_reference(dtype, zero_scale, rng):
     assert np.isnan(s[0]) and (s[1:4] == np.inf).all() and s[4] == zero_scale
     assert not q.numpy()[:5].any()
     assert np.isfinite(s[5:]).all() and (s[5:] > 0).all() and q.numpy()[5:].any()
+
+
+@pytest.mark.parametrize("zero_scale", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_subnormal_rows_match_each_reference(dtype, zero_scale):
+    """Subnormals flushed as XLA flushes them (ROADMAP C 2), bit for bit:
+    zero_scale 0 against the Pallas kernel (interpret) and the jitted
+    ``qpack_ref``, 1.0 against the jitted ``_quantize_rows``, whose zero
+    rule tests the amax and so differs from the other two on rows 0 and 1."""
+    x = _subnormal_rows()
+    jx = jnp.asarray(x).astype(DTYPES[dtype][1])
+    tx = torch.from_numpy(x).to(DTYPES[dtype][2])
+    q, s = ref.qpack(tx, zero_scale)
+    assert torch.equal(qpack(tx, zero_scale)[0], q)
+    if zero_scale == 0.0:
+        refs = [qpack_pallas(jx, interpret=True), jax.jit(jref.qpack_ref)(jx)]
+    else:
+        refs = [jax.jit(jcomp._quantize_rows)(jx)]
+    for jq, js in refs:
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        assert s.numpy().tobytes() == np.asarray(js).tobytes()
+    s, q = s.numpy()[:, 0], q.numpy()
+    if zero_scale == 0.0:
+        assert (s[[0, 1]] == 0).all() and not q[[0, 1]].any()
+    else:
+        assert s[0] == 0 and (q[0] == [127, 127, 0, -127]).all()
+        assert s[1] == 1.0 and not q[1].any()
+    assert (q[4:6, 1:] == 0).all() and (q[4:6, 0] == 127).all()
+    assert not q[7].any() and s[7] == zero_scale
+
+
+@pytest.mark.parametrize("zero_scale", [0.0, 1.0])
+def test_subnormal_payloads_dequantize_as_the_references(zero_scale):
+    """``qunpack`` needs no flush: each scale is 0, 1.0 or at least
+    FLT_MIN and each nonzero q at least 1 in size, so no product is
+    subnormal, and the port dequantizes the payloads as the Pallas
+    ``qunpack`` (interpret) and the jitted ``qunpack_ref`` do."""
+    x = _subnormal_rows()
+    q, s = ref.qpack(torch.from_numpy(x), zero_scale)
+    sn = s.numpy()
+    assert ((sn == 0) | (sn == zero_scale) | (sn >= TINY)).all()
+    for dt in ("f32", "bf16"):
+        got = _np(qunpack(q, s, DTYPES[dt][2]))
+        jq, js = jnp.asarray(q.numpy()), jnp.asarray(sn)
+        for want in (jax.jit(jref.qunpack_ref, static_argnums=2)(jq, js, DTYPES[dt][1]),
+                     qunpack_pallas(jq, js, DTYPES[dt][1], interpret=True)):
+            assert got.tobytes() == _np(want).tobytes()
+        prod = np.abs(got[got != 0])
+        assert (prod >= TINY).all()
 
 
 def test_scale_is_the_compiled_references(rng):

@@ -292,12 +292,22 @@ def test_launch_serve_on_the_cpu(capsys):
     assert capsys.readouterr().out.startswith("3 requests, 12 tokens in ")
 
 
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b"])
+def test_launch_serve_dense_on_the_cpu(arch, capsys):
+    """The default arch, and the one with local layers and softcaps."""
+    argv = ["--reduced", "--device", "cpu", "--requests", "3", "--prompt-len", "9",
+            "--max-new", "4", "--slots", "2"]
+    assert launch_serve.main((["--arch", arch] if arch != "qwen3-8b" else []) + argv) == 0
+    assert capsys.readouterr().out.startswith("3 requests, 12 tokens in ")
+
+
 def test_launch_serve_refuses(monkeypatch):
     with pytest.raises(SystemExit):
         launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                            "--ckpt-dir", "ckpt"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        launch_serve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        launch_serve.main(["--arch", "llama4-scout-17b-a16e", "--reduced",
+                           "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.build(launch_serve.parse_args(["--arch", ARCH, "--reduced"]))
