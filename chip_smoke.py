@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's checkpoint and serving paths on one GPU
-and check them.
+"""Drive the PyTorch/CUDA port's checkpoint, training and serving paths on
+one GPU and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -38,12 +38,19 @@ runs, failing on the first error:
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
    equal bytes from CPU tensors, and the restore is bitwise;
-4. a qwen3-8b train state at full width, depth 1 (params f32, bf16 AdamW
-   moments; its tree from the port's ``Model.param_specs()``): save and
-   restore through ``CheckpointManager``, bitwise; then the depth-1 model
-   on the restored weights cast to bf16 (a prefill of 2 x 64 tokens and 3
-   decode steps), its logits bit-equal to the same calls on the weights
-   before the save;
+4. the main path: qwen3-8b at full width, depth 1 (its tree checked
+   against the published widths), trained by ``repro_torch.launch.train``
+   (``build``/``run``) for 4 steps of 8 x 128 tokens with compressed
+   gradients, saved at step 4 (20.1 GB: f32 params and AdamW moments, a
+   bf16 residual); the step time, tokens/s, losses, peak memory and one
+   profiled step beside the step's bound; the checkpoint restored through
+   ``CheckpointManager`` bitwise against the live state, then the depth-1
+   model on the restored weights cast to bf16 (a prefill of 2 x 64 tokens
+   and 3 decode steps), its logits bit-equal to the live weights'; then the
+   preemption drill on the reduced qwen3-8b, ``python -m
+   repro_torch.launch.train`` in child processes: preempted at step 3 with
+   exit 17, resumed by the same command without the preemption, step 6
+   against an uninterrupted run within ``DRILL_RTOL``;
 5. rwkv6-1.6b served at full width through ``repro_torch.launch.serve``
    with the int8 compressed TP reduction on over a one-rank NCCL group:
    8 requests, greedy; one full-width compressed projection against
@@ -58,13 +65,16 @@ runs, failing on the first error:
    depth 2, float32), and the reduced qwen3-8b and gemma2-9b on the card
    against the port on the CPU.
 
-Launch counters are zeroed just before phase 3 and read after phase 4 (the
-checkpoint path, whose restored weights then run the dense model), zeroed
-again just before phase 5's serve run and read after it (the rwkv6 serve
+Launch counters are zeroed just before phase 3 and read after it (the
+event tree's save and restore), zeroed again just before phase 4's
+trainer and read after its save and after its restore (the main path),
+zeroed before phase 5's serve run and read after it (the rwkv6 serve
 path), and again around phase 6's timed run (the dense serve path, which
-launches none of the port's kernels).  The second-to-last line is the
-kernels' JSON record, the last line the device record.  Without a CUDA
-device it prints no result and exits 1.
+launches none of the port's kernels).  A kernel's ``launches`` in the
+JSON record is the sum over phases 3 and 4 (the checkpoint kernels) or
+phase 5 (qpack, qunpack).  Each phase prints its seconds.  The
+second-to-last line is the kernels' JSON record, the last line the device
+record.  Without a CUDA device it prints no result and exits 1.
 """
 
 import hashlib
@@ -78,6 +88,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+F32_FLOPS = 67e12                  # float32 outside the tensor cores
+BF16_FLOPS = 989e12                # dense bf16 tensor cores
 CARDS_USED = 1                     # every phase runs on cuda:0
 
 # phase 5: the serve run, as ``python -m repro_torch.launch.serve`` takes it
@@ -1301,38 +1313,14 @@ def qwen3_8b_depth1_specs():
     return cfg, specs
 
 
-def train_state(torch, specs):
-    """Params as init_params makes them (normal * 1/sqrt(fan_in), fan_in =
-    shape[0]; "ones" constant), bf16 AdamW moments filled with small values
-    of a trained state's size, int32 counters."""
-    from repro_torch.models.specs import _unflatten
-    g = torch.Generator(device="cuda").manual_seed(0)
-    params, m, v = {}, {}, {}
-    for path, spec in specs.items():
-        shape = tuple(spec.shape)
-        if spec.init == "ones":
-            p = torch.ones(shape, dtype=torch.float32, device="cuda")
-        else:
-            fan_in = shape[0] if len(shape) >= 2 else shape[-1]
-            p = torch.randn(shape, generator=g, device="cuda") / fan_in ** 0.5
-        params[path] = p
-        grad = torch.randn(shape, generator=g, device="cuda") * 1e-3
-        m[path] = (0.1 * grad).to(torch.bfloat16)
-        v[path] = (0.05 * grad * grad).to(torch.bfloat16)
-        del grad
-    one = torch.ones((), dtype=torch.int32, device="cuda")
-    return {"params": _unflatten(params),
-            "opt": {"m": _unflatten(m), "v": _unflatten(v), "count": one.clone()},
-            "step": one.clone()}
-
-
 def run_depth1(torch, model, params):
     """A prefill of 2 x 64 tokens and 3 greedy decode steps of the depth-1
     model on ``params`` cast to bf16: the logits of each call."""
     p = _to(torch, params, torch.bfloat16)
-    tokens = torch.randint(2, VOCAB, (2, 64), generator=torch.Generator().manual_seed(5))
+    tokens = torch.randint(2, model.cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(5))
     with torch.no_grad():
-        logits, cache = model.prefill(p, {"tokens": tokens.cuda()}, 128)
+        logits, cache = model.prefill(p, {"tokens": tokens.to(p["embed"].device)}, 128)
         out = [logits]
         for i in range(3):
             logits, cache = model.decode_step(p, cache, logits.argmax(-1)[:, None], 64 + i)
@@ -1356,55 +1344,278 @@ def disk_write_gbps(tmp: str, nbytes: int = 1 << 30) -> float:
     return nbytes / dt / 1e9
 
 
-def phase_train_state(torch, tmp, workers):
+# the trainer's run: the driver's defaults (batch 8 x 128), compressed
+# gradients (a bf16 residual: shuffle2, as bf16 moments were), 4 steps,
+# one save at step 4
+TRAIN_ARGS = ["--arch", "qwen3-8b", "--steps", "4", "--ckpt-every", "4",
+              "--log-every", "1", "--compress-grads"]
+# the preemption drill, as a user would run it (reduced qwen3-8b on the card)
+DRILL_ARGS = ["--arch", "qwen3-8b", "--reduced", "--steps", "6",
+              "--ckpt-every", "3"]
+# resumed against uninterrupted, step 6: bf16 compute, and the embedding's
+# backward accumulates with atomics in no fixed order, so bits may differ
+DRILL_RTOL = 1e-3
+
+
+def _step_flops_bytes(cfg, n_params: int, tokens: int) -> dict:
+    """The least work of one train step: the float32 unembedding's GEMMs
+    (forward and two backward) at the float32 peak, the layer's bf16 GEMMs
+    likewise at the bf16 peak, and the optimizer's bytes (read p, g, m, v
+    in float32 and the bf16 residual; write p, m, v and the residual) at
+    the HBM rate.  Attention's score GEMMs are left out (S = 128)."""
+    unembed = 6 * cfg.d_model * cfg.vocab * tokens
+    layer_params = n_params - 2 * cfg.d_model * cfg.vocab
+    layer = 6 * layer_params * tokens
+    opt_bytes = n_params * (4 * 4 + 2 + 3 * 4 + 2)
+    ms = {"unembed_f32": unembed / F32_FLOPS * 1e3,
+          "layer_bf16": layer / BF16_FLOPS * 1e3,
+          "optimizer_bytes": opt_bytes / HBM_BYTES_PER_S * 1e3}
+    return {"unembed_tflop": unembed / 1e12, "layer_tflop": layer / 1e12,
+            "optimizer_gb": opt_bytes / 1e9, "bound_ms": ms,
+            "bound_ms_total": sum(ms.values())}
+
+
+def _kind(name: str) -> str:
+    n = name.lower()
+    for kind, keys in (("gemm", ("gemm", "xmma", "nvjet", "cutlass")),
+                       ("reduce", ("reduce",)), ("index", ("index", "scatter", "gather")),
+                       ("elementwise", ("elementwise", "unrolled", "vectorized")),
+                       ("copy/fill", ("memcpy", "memset", "fill", "copy"))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def _profile_step(torch, step_fn, state, batch):
+    """One train step under torch.profiler: wall, device busy time (every
+    device operation, summed), that time by kind of operation, and the
+    entries that take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del new
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    by_kind: dict = {}
+    for e in evs:
+        k = _kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_ops": sum(e.count for e in evs), "by_kind_ms": by_kind,
+            "top_device_ms": [(e.key[:100], e.count, e.self_device_time_total / 1e3)
+                              for e in top]}
+
+
+def _step_phases(torch, model, state, batch):
+    """Device ms of the train step's parts, each between CUDA events, on
+    the live state: forward and backward through the bf16 cast, the int8
+    error-feedback quantizer over every leaf, the clip, AdamW."""
+    from repro_torch.train import adamw_update, clip_by_global_norm
+    from repro_torch.train.optim import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.train.step import _quantize_ef
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+    flat = tree_leaves(leaves)
+    ev[0].record()
+    loss, _ = model.loss(tree_map(lambda p: p.to(torch.bfloat16), leaves), batch)
+    grads = torch.autograd.grad(loss, flat)
+    ev[1].record()
+    with torch.no_grad():
+        pairs = [_quantize_ef(g, e) for g, e in zip(grads, tree_leaves(state.err))]
+        del grads
+        deq = tree_unflatten(state.params, [p[0] for p in pairs])
+        del pairs
+        ev[2].record()
+        clipped, _ = clip_by_global_norm(deq, 1.0)
+        del deq
+        ev[3].record()
+        out = adamw_update(clipped, state.opt, state.params, 1e-4)
+        ev[4].record()
+    torch.cuda.synchronize()
+    del out, clipped, leaves, flat
+    names = ["forward_backward", "quantize_ef", "clip", "adamw"]
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def _preconditioners(path: str) -> dict:
+    """{preconditioner: branches} of a saved checkpoint, from its TOC."""
+    from repro_torch.core.bfile import BasketFile
+    out: dict = {}
+    with BasketFile(path) as f:
+        for name, entry in f.branches.items():
+            if name != "__meta__":
+                pre = entry["baskets"][0]["meta"]["precond"]
+                out[pre] = out.get(pre, 0) + 1
+    return out
+
+
+def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
+    """``cfg`` (qwen3-8b at full width, depth 1) trained for 4 steps by
+    ``repro_torch.launch.train`` with compressed gradients; its step-4
+    checkpoint restored through CheckpointManager bitwise against the live
+    state; the depth-1 model on the restored weights bit-equal to the live
+    weights'; one profiled step."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.launch import train as launch
     from repro_torch.models import Model
-    cfg, specs = qwen3_8b_depth1_specs()
-    state = train_state(torch, specs)
-    flat = _flatten_with_paths(state)
-    n_params = sum(t.numel() for k, t in flat.items() if k.startswith("params."))
-    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
-    torch.cuda.synchronize()
-    log(f"phase 4: qwen3-8b depth 1: {n_params / 1e9:.3f} B params, "
-        f"{nbytes / 1e9:.2f} GB on the card; free disk "
-        f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB, writes "
-        f"{disk_write_gbps(tmp):.3f} GB/s with fsync")
-    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), workers=workers)
+    from repro_torch.train import make_train_step
+    args = launch.parse_args(TRAIN_ARGS + ["--workdir", os.path.join(tmp, "train"),
+                                           "--device", device])
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     stage_seconds()
     t0 = time.perf_counter()
-    mgr.save(1, state, wait=True)
-    save_s = time.perf_counter() - t0
+    run = launch.run(cfg, model, args)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     save_stages = stage_seconds()
-    log(f"phase 4: save stages (s): {save_stages}")
-    stats = mgr.wait()
+    assert run.code == 0 and run.save_stats is not None
+    save_counts = ops.launch_counts()
+    tree = {"params": run.state.params, "opt": run.state.opt,
+            "step": run.state.step, "err": run.state.err}
+    flat = _flatten_with_paths(tree)
+    n_params = sum(t.numel() for k, t in flat.items() if k.startswith("params."))
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values() if t is not None)
+    with open(os.path.join(args.workdir, "train_log.jsonl")) as fh:
+        log_lines = [json.loads(line) for line in fh]
+    losses = [m["loss"] for m in log_lines]
+    assert [m["step"] for m in log_lines] == [1, 2, 3, 4], log_lines
+    assert all(np.isfinite(v) for v in losses), losses
+    assert int(run.state.step) == 4 and run.state.err is not None
+    step_ms = sorted(run.step_seconds[1:4])[1] * 1e3
+    tokens = args.batch * args.seq_len
+    bound = _step_flops_bytes(cfg, n_params, tokens)
+    log(f"phase 4: qwen3-8b depth 1 trained by launch.train: {n_params / 1e9:.3f} B "
+        f"params, state {nbytes / 1e9:.2f} GB (f32 params and moments, bf16 "
+        f"residual); losses {losses}; step {step_ms:.1f} ms (median of steps "
+        f"2-4; all: {[round(x * 1e3, 1) for x in run.step_seconds]}), "
+        f"{tokens / step_ms * 1e3:.0f} tok/s; bound {bound['bound_ms_total']:.1f} ms "
+        f"{bound['bound_ms']}; peak device memory {peak_gb:.2f} GB; run wall "
+        f"{wall_s:.1f} s")
+    stats = run.save_stats
+    save_s = stats["wall_s"]
+    ckpt = os.path.join(args.workdir, "ckpt", "ckpt-00000004.bskt")
+    precond = _preconditioners(ckpt)
+    log(f"phase 4: save stages (s): {save_stages}; preconditioners by branch: "
+        f"{precond}; launches on the save: {save_counts}")
+    # one more step on the live state under the profiler (its result dropped)
+    step_fn = make_train_step(model, peak_lr=args.lr, warmup=5, total_steps=4,
+                              compress_grads=True)
+    rng = np.random.default_rng(3)
+    tok = rng.integers(2, cfg.vocab, (args.batch, args.seq_len + 1)).astype(np.int32)
+    batch = launch.build_batch(cfg, {"tokens": tok[:, :-1], "targets": tok[:, 1:]},
+                               1, device)
+    prof = _profile_step(torch, step_fn, run.state, batch)
+    log(f"phase 4: one profiled step: {prof}")
+    prof["phases_ms"] = _step_phases(torch, model, run.state, batch)
+    log(f"phase 4: the step's parts, device ms between events: {prof['phases_ms']}")
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    restored, _ = mgr.restore(device="cuda", template=state)
+    restored, meta = CheckpointManager(os.path.join(args.workdir, "ckpt")).restore(
+        device=device, template=tree)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     restore_stages = stage_seconds()
-    log(f"phase 4: restore stages (s): {restore_stages}")
+    restore_counts = ops.launch_counts()
+    log(f"phase 4: restore stages (s): {restore_stages}; launches on the "
+        f"restore: {restore_counts}; cursor {meta['data_cursor']}")
     back = _flatten_with_paths(restored)
     for k, t in flat.items():
-        assert same_bits(back[k], t), k
+        assert (back[k] is None) if t is None else same_bits(back[k], t), k
     # the restored weights run the model as the saved ones do, bit for bit
-    model = Model(cfg)
-    before = run_depth1(torch, model, state["params"])
+    before = run_depth1(torch, model, run.state.params)
     after = run_depth1(torch, model, restored["params"])
     for i, (a, b) in enumerate(zip(before, after)):
-        assert a.shape == (2, VOCAB) and torch.isfinite(a).all(), i
+        assert a.shape == (2, cfg.vocab) and torch.isfinite(a).all(), i
         assert same_bits(a, b), f"call {i}: logits of the restored weights differ"
     log("phase 4: the depth-1 model on the restored weights (bf16): prefill 2 x 64 "
-        "and 3 decode steps, logits bit-equal to the weights' before the save")
+        "and 3 decode steps, logits bit-equal to the live weights'")
     ratio = stats["raw"] / stats["comp"]
-    log(f"phase 4: save {save_s:.3f} s ({nbytes / save_s / 1e9:.3f} GB/s), "
-        f"restore {restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s), "
-        f"bitwise equal; ratio {ratio:.4f}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    shutil.rmtree(os.path.join(tmp, "ckpt"))
-    return {"gb": nbytes / 1e9, "save_s": save_s, "restore_s": restore_s,
-            "ratio": ratio, "save_stages_s": save_stages,
-            "restore_stages_s": restore_stages}
+    wait_s = save_stages.get("ckpt.stage.wait_s", 0.0)
+    log(f"phase 4: save {save_s:.3f} s ({nbytes / save_s / 1e9:.3f} GB/s; waiting "
+        f"for kernels and D2H {wait_s:.3f} s = {100 * wait_s / save_s:.2f}%), restore "
+        f"{restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s), bitwise equal; "
+        f"ratio {ratio:.4f}")
+    for name in ("bitshuffle", "byteshuffle"):
+        assert save_counts[name] > 0, f"{name} not launched on the trainer's save"
+    for name in ("bitunshuffle", "byteunshuffle"):
+        assert restore_counts[name] > 0, f"{name} not launched on the restore"
+    counts = {k: save_counts[k] + restore_counts[k] for k in save_counts}
+    step_ms_all = [x * 1e3 for x in run.step_seconds]
+    del restored, back, run, tree, flat
+    shutil.rmtree(args.workdir)
+    return {"gb": nbytes / 1e9, "n_params": n_params, "losses": losses,
+            "step_ms": step_ms, "step_ms_all": step_ms_all,
+            "tok_per_s": tokens / step_ms * 1e3, "bound": bound,
+            "peak_gb": peak_gb, "profile": prof, "save_s": save_s,
+            "restore_s": restore_s, "ratio": ratio, "preconditioners": precond,
+            "save_stages_s": save_stages, "restore_stages_s": restore_stages,
+            "save_launches": save_counts, "restore_launches": restore_counts}, counts
+
+
+def _drive_trainer(workdir, extra):
+    """``python -m repro_torch.launch.train`` in a child process, on the
+    card unless ``extra`` names another device."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--workdir", workdir] + DRILL_ARGS + extra,
+                       capture_output=True, text=True, timeout=300, env=env,
+                       cwd=ROOT)
+    return r, time.perf_counter() - t0
+
+
+def phase_drill(torch, tmp, device="cuda"):
+    """The preemption drill on the card: preempted at step 3 (exit 17), the
+    same command without the preemption resumes at step 3 and ends; step 6
+    against an uninterrupted run in a fresh workdir."""
+    from repro_torch.checkpoint import load_pytree
+    cut, whole = os.path.join(tmp, "drill-cut"), os.path.join(tmp, "drill-whole")
+    dev = ["--device", device]
+    r1, s1 = _drive_trainer(cut, dev + ["--simulate-preempt", "3"])
+    assert r1.returncode == 17, (r1.returncode, r1.stderr[-3000:])
+    assert "simulated preemption at step 3" in r1.stdout, r1.stdout
+    r2, s2 = _drive_trainer(cut, dev)
+    assert r2.returncode == 0, (r2.returncode, r2.stderr[-3000:])
+    assert "resumed from step 3" in r2.stdout, r2.stdout
+    r3, s3 = _drive_trainer(whole, dev)
+    assert r3.returncode == 0, (r3.returncode, r3.stderr[-3000:])
+
+    def last(wd):
+        with open(os.path.join(wd, "train_log.jsonl")) as fh:
+            lines = [json.loads(line) for line in fh]
+        assert lines[-1]["step"] == 6, lines
+        return lines
+
+    a, b = last(cut), last(whole)
+    loss_rel = abs(a[-1]["loss"] - b[-1]["loss"]) / abs(b[-1]["loss"])
+    pa, _ = load_pytree(os.path.join(cut, "ckpt", "ckpt-00000006.bskt"), device=device)
+    pb, _ = load_pytree(os.path.join(whole, "ckpt", "ckpt-00000006.bskt"), device=device)
+    assert sorted(pa) == sorted(pb)
+    rel, bitwise = 0.0, True
+    for k in pa:
+        if not k.startswith("params."):
+            continue
+        bitwise &= same_bits(pa[k], pb[k])
+        d = (pa[k].double() - pb[k].double()).norm() / pb[k].double().norm()
+        rel = max(rel, d.item())
+    assert loss_rel <= DRILL_RTOL and rel <= DRILL_RTOL, (loss_rel, rel)
+    log(f"phase 4: drill (reduced qwen3-8b, 6 steps, checkpoints at 3 and 6): "
+        f"preempted at step 3 with exit 17 ({s1:.1f} s), resumed at step 3 to 6 "
+        f"({s2:.1f} s), uninterrupted ({s3:.1f} s); step-6 loss {a[-1]['loss']:.6f} "
+        f"against {b[-1]['loss']:.6f} (relative {loss_rel:.2e}), params at step 6 "
+        f"within {rel:.2e} relative (bound {DRILL_RTOL}), bit-equal: {bitwise}")
+    return {"loss_rel": loss_rel, "params_rel": rel, "params_bitwise": bitwise,
+            "seconds": [s1, s2, s3]}
 
 
 def precond_share(torch, np, host, events_save_s):
@@ -1814,6 +2025,15 @@ def main() -> int:
         f"(nvcc: {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     workers = os.cpu_count() or 1
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    phase_s = {}
+    mark = [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        phase_s[phase] = now - mark[0]
+        log(f"{phase}: {phase_s[phase]:.1f} s")
+        mark[0] = now
+
     try:
         rows = phase_kernels(torch, ops.PRECOND_KERNELS, ref)
         phase_bitshuffle(torch, ops.KERNELS, ref)
@@ -1835,21 +2055,28 @@ def main() -> int:
         bitshuffle_targets(rows, split)
         byteshuffle_targets(rows, split, large)
         qpack_targets(rows, split, qpack_large)
+        done("phase 1")
         phase_golden(torch, np, tmp)
-        ops.reset_launch_counts()                      # the main path starts
+        done("phase 2")
+        ops.reset_launch_counts()                      # the event tree's path
         events, host_events, _ = phase_events(torch, np, tmp, workers)
-        after3 = ops.launch_counts()
-        log(f"launches after phase 3: {after3}")
-        train = phase_train_state(torch, tmp, workers)
-        counts = ops.launch_counts()                   # the main path ends
-        log(f"launches after phase 4: {counts}")
+        counts = ops.launch_counts()
+        log(f"launches on the event tree's save and restore: {counts}")
         share = precond_share(torch, np, host_events, events["save_s"])
+        done("phase 3")
+        # the main path: the trainer's save, then its restore
+        ops.reset_launch_counts()
+        train, train_counts = phase_train(torch, np, tmp, ops,
+                                          qwen3_8b_depth1_specs()[0])
+        torch.cuda.empty_cache()               # room for the drill's processes
+        log(f"launches on the trainer's save and restore: {train_counts}")
+        train["drill"] = phase_drill(torch, tmp)
+        done("phase 4")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the restore undoes every delta of the save: one undelta a basket
-    assert after3["undelta"] == after3["delta"] > 0, after3
-    for name in ("bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle"):
-        assert counts[name] - after3[name] > 0, f"{name} not launched in phase 4"
+    assert counts["undelta"] == counts["delta"] > 0, counts
+    counts = {k: counts[k] + train_counts[k] for k in counts}
     for name in ops.PRECOND_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the checkpoint path"
     import torch.distributed as dist
@@ -1861,13 +2088,15 @@ def main() -> int:
     for name in ("qpack", "qunpack"):
         assert serve_counts[name] > 0, f"{name} never launched on the serve path"
         counts[name] = serve_counts[name]
+    done("phase 5")
     dense, dense_counts = phase_dense_serve(torch, ops)
     log(f"launches on the dense serve path: {dense_counts}")
+    done("phase 6")
     for row in rows:
         row["launches"] = counts[row["name"]]
-    log(json.dumps({"phase3_events": events, "phase4_qwen3_8b_depth1": train,
+    log(json.dumps({"phase3_events": events, "phase4_train_qwen3_8b_depth1": train,
                     "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
-                    "phase6_serve_qwen3_8b": dense,
+                    "phase6_serve_qwen3_8b": dense, "phase_s": phase_s,
                     "card": smi, "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,7 @@ the manifest), resumable ``latest_step``, retention, parity sidecars and
 
 Not ported yet (ROADMAP.md queue A): ``producers>1`` (buffer merger),
 ``tuner=``/``objective=``/``tune=`` (measured codec selection),
-``prefetch>0`` and ``shardings=``.
+``load_pytree(prefetch>0)`` and ``shardings=``.
 """
 
 from __future__ import annotations
@@ -391,6 +391,9 @@ def load_pytree(path: str, template=None, shardings=None, workers: int = 4,
     the ``<path>.parity`` sidecar, as in the reference."""
     if shardings is not None:
         raise _not_ported("shardings=", "parallel slice")
+    if prefetch:
+        # the staged restore decodes every basket itself (_read_tensor)
+        raise _not_ported("load_pytree(prefetch>0)", "prefetching restore")
     device = _resolve_device(device)
     t0 = time.perf_counter()
     with obs.trace.span("ckpt.load", cat="ckpt", path=path), \

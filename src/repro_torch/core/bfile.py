@@ -375,8 +375,11 @@ class BasketWriter:
 class BasketFile:
     """Reader with optional thread-pool parallel decompression.
 
-    ``workers`` sets the default decompression pool width.  ``prefetch>0``
-    (decompress-ahead reads) is not ported yet and raises.
+    ``workers``/``prefetch`` delegate reads to the parallel I/O engine:
+    ``workers`` sets the default decompression pool width, ``prefetch>0``
+    routes ``read_branch``/``read_entries`` through a decompress-ahead
+    :class:`repro_torch.io.prefetch.PrefetchReader` (``prefetch`` = read-ahead
+    depth in baskets) with an LRU decompressed-basket cache.
 
     ``heal="auto"`` turns a checksum-failing or torn basket read into a
     repair attempt instead of a quarantine dead end: the basket is
@@ -394,10 +397,6 @@ class BasketFile:
                  heal: Optional[str] = None):
         if heal not in (None, "auto"):
             raise ValueError(f"heal must be None or 'auto', got {heal!r}")
-        if prefetch:
-            raise NotImplementedError(
-                "decompress-ahead reads (prefetch>0) are not ported yet: "
-                "ROADMAP.md queue A, 'prefetch in the port'")
         self.path = str(path)
         self.verify = verify
         self.heal = heal
@@ -647,6 +646,19 @@ class BasketFile:
         raise self._quarantine(name, i, b, last or "post-heal re-read "
                                "keeps failing")
 
+    def _reader(self, name: str):
+        """Cached PrefetchReader per branch (engine shared across them);
+        locked — one BasketFile may serve readers on several threads."""
+        with self._reader_lock:
+            if name not in self._readers:
+                from repro_torch.io.engine import CompressionEngine
+                from repro_torch.io.prefetch import PrefetchReader
+                if self._engine is None:
+                    self._engine = CompressionEngine(self.workers or 2)
+                self._readers[name] = PrefetchReader(
+                    self, name, ahead=self.prefetch, engine=self._engine)
+            return self._readers[name]
+
     @staticmethod
     def _byte_offsets(entry: dict) -> tuple[list[int], int]:
         return byte_offsets(b["meta"]["orig_len"] for b in entry["baskets"])
@@ -660,6 +672,8 @@ class BasketFile:
         no final concatenation."""
         if workers is None:
             workers = self.workers
+        if self.prefetch:
+            return self._reader(name).read_all()
         entry = self.branches[name]
         n = len(entry["baskets"])
         out = np.empty(tuple(entry["shape"]), dtype=np.dtype(entry["dtype"]))
@@ -683,7 +697,11 @@ class BasketFile:
         return out
 
     def read_entries(self, name: str, start: int, stop: int) -> np.ndarray:
-        """Row-range read touching only the covering baskets (seekability)."""
+        """Row-range read touching only the covering baskets (seekability).
+        With ``prefetch>0`` the decompress-ahead reader also schedules the
+        baskets *after* the range, hiding latency for forward scans."""
+        if self.prefetch:
+            return self._reader(name).read_entries(start, stop)
         entry = self.branches[name]
         shape = tuple(entry["shape"])
         dtype = np.dtype(entry["dtype"])

@@ -2,15 +2,17 @@
 
 * :class:`~repro_torch.io.engine.CompressionEngine` — pipelined parallel
   basket compression with in-order streaming commit and backpressure;
+* :class:`~repro_torch.io.prefetch.PrefetchReader` — decompress-ahead reads
+  with an LRU decompressed-basket cache (the TTreeCache analogue);
 * :mod:`~repro_torch.io.shmem` — shared-memory slab pool: the zero-pickle
   transport behind the process-pool codecs;
 * :mod:`~repro_torch.io.fdcache` — one cached fd per container path with
   ``os.pread`` basket reads.
 
-The reference's decompress-ahead reader and buffer merger are not ported
-yet (ROADMAP.md queue A).
+The reference's buffer merger is not ported yet (ROADMAP.md A9).
 """
 
 from .engine import CompressionEngine, cpu_count
+from .prefetch import PrefetchReader
 
-__all__ = ["CompressionEngine", "cpu_count"]
+__all__ = ["CompressionEngine", "cpu_count", "PrefetchReader"]

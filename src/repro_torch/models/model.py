@@ -33,6 +33,7 @@ from . import layers as L
 from . import rwkv as R
 from .config import ModelConfig
 from .specs import ParamSpec, init_params, tree_paths, _unflatten
+from ..checkpoint.manager import _resolve_device
 from ..parallel.actctx import constrain
 
 __all__ = ["Model"]
@@ -289,8 +290,10 @@ class Model(nn.Module):
                    cache_dtype=torch.bfloat16, device=None):
         """The decode state, stacked over the groups: a KV cache of
         ``(n_groups, B, max_len, KV, Dh)`` for each attention layer, the
-        recurrent state of each RWKV layer."""
+        recurrent state of each RWKV layer, on ``device`` (default: the
+        GPU; raises when there is none)."""
         cfg = self.cfg
+        device = _resolve_device(device)
         g = {}
         for j, pe in enumerate(cfg.pattern):
             e: dict = {}

@@ -338,3 +338,15 @@ def test_engine_greedy_tokens_match_jax():
     for rid in rids:
         assert len(out[rid]) == MAX_NEW
         np.testing.assert_array_equal(out[rid], want[rid])
+
+
+def test_init_cache_defaults_to_the_card(monkeypatch):
+    """With no device named, the cache goes where every entry point goes:
+    the card, or an error that names ``device="cpu"`` when there is none."""
+    model = Model(configs.reduced(configs.get_config("qwen3-8b")))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(2, 16)
+    cache = model.init_cache(2, 16, device="cpu")
+    k = cache["l0"]["self"]["k"]
+    assert k.device.type == "cpu" and k.shape[:3] == (model.cfg.n_groups, 2, 16)

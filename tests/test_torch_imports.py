@@ -38,6 +38,7 @@ import repro_torch, repro_torch.checkpoint, repro_torch.kernels.ops
 import repro_torch.data, repro_torch.repair
 import repro_torch.configs, repro_torch.models, repro_torch.parallel
 import repro_torch.serve, repro_torch.launch.serve
+import repro_torch.train, repro_torch.launch.train
 repro_torch.configs.get_config("rwkv6-1.6b")
 assert not any(m.split(".")[0] in {blocked!r} for m in sys.modules), \\
     sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
@@ -49,6 +50,8 @@ def test_storage_layer_does_not_load_torch():
     r = _run("""
 import sys
 import repro_torch, repro_torch.core, repro_torch.io.engine, repro_torch.obs
+import repro_torch.io, repro_torch.io.prefetch
+import repro_torch.data, repro_torch.data.pipeline
 assert "torch" not in sys.modules
 """)
     assert r.returncode == 0, r.stderr
