@@ -63,20 +63,39 @@ runs, failing on the first error:
    memory, a profiled window; then the KV cache against a longer prefill
    and a 4096-token prefill with ``q_chunk`` 512 against none (full width,
    depth 2, float32), and the reduced qwen3-8b and gemma2-9b on the card
-   against the port on the CPU.
+   against the port on the CPU;
+7. jamba-v0.1-52b at full width, depth cut 32 -> 8 (one group of its
+   block: 7 mamba, 1 attention, 4 dense FFN, 4 top-2 MoE of 16 experts;
+   13.30 B params), and
+8. llama4-scout-17b-a16e at full width, depth cut 48 -> 4 (top-1 MoE of 16
+   experts and a shared expert; 10.88 B params), each served through
+   ``repro_torch.launch.serve`` with phase 6's traffic after an untimed
+   warm-up run: tok/s, prefill and decode-step times beside the decode
+   step's bound (every weight but the embedding: the dispatch runs every
+   expert), peak memory, and a profiled window that times the mamba scan,
+   the MoE dispatch, combine and expert GEMMs apart;
+9. checks at full width: one llama4-scout MoE layer in float32, dropless,
+   against a loop over its experts; one jamba mamba layer, the full pass
+   against 64 decode steps (the reference's invariant, max abs 5e-3);
+   seamless-m4t-medium whole in float32, its prefill and decode against
+   the teacher-forced forward (1e-4) and its bf16 cross cache against the
+   encoder's projections; the reduced llama4-scout, jamba and seamless on
+   the card against the port on the CPU in float32 (1e-4).
 
 Launch counters are zeroed just before phase 3 and read after it (the
 event tree's save and restore), zeroed again just before phase 4's
 trainer and read after its save and after its restore (the main path),
 zeroed before phase 5's serve run and read after it (the rwkv6 serve
-path), and again around phase 6's timed run (the dense serve path, which
-launches none of the port's kernels).  A kernel's ``launches`` in the
+path), and again around the timed runs of phases 6, 7 and 8 (the dense,
+hybrid and MoE serve paths, which launch none of the port's kernels).  A kernel's ``launches`` in the
 JSON record is the sum over phases 3 and 4 (the checkpoint kernels) or
 phase 5 (qpack, qunpack).  Each phase prints its seconds.  The
 second-to-last line is the kernels' JSON record, the last line the device
 record.  Without a CUDA device it prints no result and exits 1.
 """
 
+import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -1675,11 +1694,15 @@ def _span_ms(spans, name):
     return sum(durs) / len(durs), durs[len(durs) // 2], len(durs)
 
 
-def _profile_window(torch, model, params, group, tokens):
+def _profile_window(torch, model, params, group, tokens, labels=None):
     """One prefill and three decode steps under torch.profiler, compressed
     TP on over ``group`` (none: off): wall time, device busy time (kernels
-    on the one stream, summed) and the kernels that take the most of it."""
-    import contextlib
+    on the one stream, summed) and the kernels that take the most of it.
+    ``labels`` ({(module, function name): label}) wraps those functions
+    in ``record_function`` ranges for the window and adds, under
+    ``split_ms``, each label's calls, device time (the kernels launched
+    inside its ranges, summed: not the ranges' spans on the device, which
+    hold the gaps where the device waits for the host) and host time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import rwkv
     from repro_torch.parallel import activation_context
@@ -1697,25 +1720,60 @@ def _profile_window(torch, model, params, group, tokens):
     try:
         with torch.no_grad(), ctx:
             window()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with _labelled(torch, labels or {}), \
+                    profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 window()
                 wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         rwkv.PERF_FLAGS["compressed_tp"] = False
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = set((labels or {}).values())
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in names]             # not the ranges' GPU spans
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     quant_ms = sum(e.self_device_time_total for e in kernels
                    if "qpack_kernel" in e.key or "qunpack_kernel" in e.key) / 1e3
     launches = sum(e.count for e in kernels)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms,
-            "kernel_launches": launches, "quant_kernels_ms": quant_ms,
-            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                               for e in top}}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "kernel_launches": launches, "quant_kernels_ms": quant_ms,
+           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top}}
+    if names:
+        ranges = [e for e in prof.events() if e.name in names
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        out["split_ms"] = {
+            name: {"calls": sum(1 for e in ranges if e.name == name),
+                   "device_ms": sum(e.device_time_total for e in ranges
+                                    if e.name == name) / 1e3,
+                   "host_ms": sum(e.cpu_time_total for e in ranges
+                                  if e.name == name) / 1e3}
+            for name in sorted(names)}
+    return out
+
+
+@contextlib.contextmanager
+def _labelled(torch, labels):
+    """Wrap each (module, function name) of ``labels`` in a
+    ``record_function`` range of its label while the context is open."""
+    saved = []
+    for (mod, name), label in labels.items():
+        fn = getattr(mod, name)
+
+        @functools.wraps(fn)
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def _small_model_agrees(torch, cfg_name, group):
@@ -2003,6 +2061,306 @@ def phase_dense_serve(torch, ops):
     return summary, counts
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: jamba (one group) and llama4-scout (depth 4) served at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ARGS = ["--requests", "8", "--prompt-len", "64", "--slots", "4",
+               "--max-len", "128", "--max-new", "16"]
+# arch -> (layers kept, published widths: d_model, heads, kv heads, d_ff,
+# vocab, experts, experts a token)
+FAMILY_SERVES = {
+    "jamba-v0.1-52b": (8, (4096, 32, 8, 14336, 65536, 16, 2)),
+    "llama4-scout-17b-a16e": (4, (5120, 40, 8, 8192, 202048, 16, 1)),
+}
+
+
+def _family_labels():
+    """The new layer types' pieces, timed apart in the profiled window."""
+    from repro_torch.models import moe, ssm
+    return {(ssm, "mamba"): "mamba (prefill)", (ssm, "mamba_step"): "mamba (decode)",
+            (ssm, "_conv1d"): "mamba conv (prefill)",
+            (ssm, "_ssm_params"): "mamba dt, exp(dt A), dt B x",
+            (ssm, "_chunk_scan"): "mamba scan", (moe, "moe_ffn"): "moe (all)",
+            (moe, "_top_k"): "moe top-k sorts",
+            (moe, "_dispatch_gather"): "moe dispatch",
+            (moe, "_combine_gather"): "moe combine",
+            (moe, "_expert_ffn"): "moe expert GEMMs"}
+
+
+def phase_family_serve(torch, ops, phase, arch):
+    """``arch`` at full width, depth cut to FAMILY_SERVES' layers, through
+    launch.serve: a warm-up run, then the timed one; its decode bound, peak
+    memory and a profiled window with the new layers split out.  Returns
+    (summary, launch counts of the timed run)."""
+    import dataclasses
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.specs import tree_paths
+    layers, widths = FAMILY_SERVES[arch]
+    full = get_config(arch)
+    assert (full.d_model, full.n_heads, full.n_kv_heads, full.d_ff, full.vocab,
+            full.n_experts, full.experts_per_token) == widths, arch
+    cfg = dataclasses.replace(full, n_layers=layers)
+    args = launch.parse_args(["--arch", arch] + FAMILY_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = launch.build(args, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    leaves = tree_paths(params)
+    n_params = sum(t.numel() for t in leaves.values())
+    log(f"{phase}: {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+        f"({[(p.mixer, p.ffn) for p in cfg.pattern]}), d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB bf16 "
+        f"on the card (made in {build_s:.2f} s)")
+    launch.serve(model, params, args, cfg.vocab)     # warm-up, not timed
+    torch.cuda.synchronize()
+    obs.trace.drain()
+    ops.reset_launch_counts()                        # this serve path starts
+    out, dt = launch.serve(model, params, args, cfg.vocab)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()                     # this serve path ends
+    spans = [e for e in obs.trace.drain() if e["name"].startswith("serve.")]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_req, max_new = int(args.requests), int(args.max_new)
+    assert sorted(out) == list(range(n_req)), sorted(out)
+    for toks in out.values():
+        assert len(toks) == max_new and ((toks >= 0) & (toks < cfg.vocab)).all()
+    n_tok = sum(len(v) for v in out.values())
+    prefill_ms, prefill_med, n_prefill = _span_ms(spans, "serve.prefill")
+    decode_ms, decode_med, n_decode = _span_ms(spans, "serve.decode_step")
+    # every expert's weights are read at every step (the dispatch runs
+    # each expert's GEMM), so the bound is every weight but the embedding
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in leaves.items()
+                       if k != "embed")
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{phase}: {len(out)} requests, {n_tok} tokens in {dt:.3f} s "
+        f"({n_tok / dt:.1f} tok/s); {n_prefill} prefills of {prefill_ms:.2f} ms mean "
+        f"({prefill_med:.2f} median), {n_decode} decode steps of {decode_ms:.2f} ms "
+        f"mean ({decode_med:.2f} median); decode bound {bound_ms:.2f} ms "
+        f"({weight_bytes / 1e9:.2f} GB of weights but the embedding at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak {peak_gb:.2f} GB; "
+        f"port kernel launches {counts}")
+    prompts = torch.randint(2, cfg.vocab, (int(args.slots), int(args.prompt_len)),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+    prof = _profile_window(torch, model, params, None, prompts, _family_labels())
+    log(f"{phase}: profiled window (1 prefill + 3 decode steps): {prof}")
+    del params, leaves, model
+    torch.cuda.empty_cache()
+    summary = {"layers": cfg.n_layers, "requests": len(out), "tokens": n_tok,
+               "wall_s": dt, "tok_s": n_tok / dt, "prefill_ms": prefill_ms,
+               "prefill_median_ms": prefill_med, "prefills": n_prefill,
+               "decode_step_ms": decode_ms, "decode_step_median_ms": decode_med,
+               "decode_steps": n_decode, "decode_bound_ms": bound_ms,
+               "weight_gb_read_a_step": weight_bytes / 1e9, "params": n_params,
+               "peak_gb": peak_gb, "build_s": build_s, "profile": prof}
+    return summary, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the new families' checks at full width
+# ---------------------------------------------------------------------------
+
+MOE_LOOP_RTOL = 1e-5              # dispatch vs a loop over the experts, float32
+MAMBA_STEP_ATOL = 5e-3            # the reference's invariant (tests/test_models.py)
+ENCDEC_RTOL = 1e-4                # decode vs the teacher-forced forward, float32
+CARD_VS_CPU_F32_RTOL = 1e-4       # the reduced families, float32
+
+
+def _moe_vs_loop(torch):
+    """One llama4-scout MoE layer at full width in float32, dropless
+    (capacity_factor = E / K), against sum_k gate_k FFN_{e_k}(x) + the
+    shared expert, computed expert by expert."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.specs import init_params
+    cfg = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    p = init_params(moe.moe_specs(cfg), torch.Generator(device="cuda").manual_seed(11))
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator(device="cuda")
+                    .manual_seed(12), device="cuda")
+    with torch.no_grad():
+        out, aux = moe.moe_ffn(p, x, cfg)
+        probs = torch.softmax(x @ p["router"], -1)
+        gate, idx = probs.max(-1)                  # top-1: its gate renormalises to 1
+        want = moe._dense_ffn(p["shared"], x, cfg.ffn_act)
+        for e in range(cfg.n_experts):
+            sel = idx == e
+            if sel.any():
+                w = {n: p[n][e] for n in ("w_gate", "w_up", "w_down")}
+                want[sel] += moe._dense_ffn(w, x[sel][None], cfg.ffn_act)[0]
+    rel = _rel(torch, out, want)
+    n_bytes = sum(t.numel() * t.element_size() for t in (p["w_gate"], p["w_up"],
+                                                         p["w_down"]))
+    assert torch.isfinite(out).all() and rel < MOE_LOOP_RTOL, rel
+    return {"rel_err": rel, "experts_gb": n_bytes / 1e9,
+            "lb_loss": aux["lb_loss"].item(), "z_loss": aux["z_loss"].item(),
+            "experts_used": int(torch.unique(idx).numel())}
+
+
+def _mamba_full_vs_steps(torch):
+    """One jamba mamba layer at full width (d_inner 8192, state 16), bf16
+    input at half unit scale, as the reference's invariant: the full pass
+    over 64 tokens with its state against 64 decode steps from zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.specs import init_params
+    cfg = get_config("jamba-v0.1-52b")
+    p = init_params(ssm.mamba_specs(cfg), torch.Generator(device="cuda").manual_seed(9))
+    x = (torch.randn((2, 64, cfg.d_model), generator=torch.Generator(device="cuda")
+                     .manual_seed(5), device="cuda") * 0.5).to(torch.bfloat16)
+    with torch.no_grad():
+        full, st_full = ssm.mamba(p, x, cfg, return_state=True)
+        st = ssm.init_mamba_state(cfg, 2, device="cuda")
+        ys = []
+        for t in range(x.shape[1]):
+            y, st = ssm.mamba_step(p, x[:, t:t + 1], st, cfg)
+            ys.append(y)
+    steps = torch.cat(ys, 1)
+    out = {"out_max_abs": (full.float() - steps.float()).abs().max().item(),
+           "out_rel_err": _rel(torch, steps, full),
+           "ssm_max_abs": (st_full["ssm"] - st["ssm"]).abs().max().item(),
+           "ssm_rel_err": _rel(torch, st["ssm"], st_full["ssm"]),
+           "conv_equal": bool(torch.equal(st["conv"], st_full["conv"].float()))}
+    assert torch.isfinite(full).all() and out["out_max_abs"] < MAMBA_STEP_ATOL \
+        and out["ssm_max_abs"] < MAMBA_STEP_ATOL, out
+    return out
+
+
+def _drawn_weights(torch, model, generator):
+    """float32 weights drawn as the CPU tests draw them, on ``generator``'s
+    device: normal leaves at scale / sqrt(d_model), "ones" leaves their
+    constant, zeros zero.  ``init_params`` takes the number of groups for
+    a stacked leaf's fan-in (ROADMAP, reference behaviour 6), so its
+    random deep models amplify float32 rounding past the bounds of the
+    cache checks (``_encdec_checks`` reports the spread of two cache-free
+    forwards under its weights); these do not."""
+    from repro_torch.models.specs import _unflatten, tree_paths
+    dev = generator.device
+    flat = {}
+    for path, spec in sorted(tree_paths(model.param_specs()).items()):
+        if spec.init == "normal":
+            flat[path] = torch.randn(spec.shape, generator=generator, device=dev) \
+                * (spec.scale / model.cfg.d_model ** 0.5)
+        else:
+            flat[path] = torch.full(spec.shape, spec.scale if spec.init == "ones"
+                                    else 0.0, device=dev)
+    return _unflatten(flat)
+
+
+def _encdec_checks(torch):
+    """seamless-m4t-medium whole (12 + 12 layers) in float32: a prefill of
+    8 tokens over 64 frames against the teacher-forced forward, its bf16
+    cross cache against the encoder's projections, and 8 decode steps from
+    a float32 cache (cross leaves filled from the encoder) against the
+    forward, position by position."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _index
+    from repro_torch.models.specs import tree_paths
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"), dtype="float32")
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    frames = torch.randn((2, 64, cfg.d_model), generator=gen, device="cuda")
+    tokens = torch.randint(2, cfg.vocab, (2, 16), generator=gen, device="cuda")
+    P = 8
+    out = {}
+    # the model's own float32 spread under init_params' weights: two
+    # cache-free forwards, of 16 and of 9 tokens, at the first 9 positions
+    params = model.init(torch.Generator(device="cuda").manual_seed(13))
+    with torch.no_grad():
+        h16, _ = model.forward(params, {"tokens": tokens, "frames": frames})
+        h9, _ = model.forward(params, {"tokens": tokens[:, :9], "frames": frames})
+        out["init_params_forward_16_vs_9_rel_err"] = _rel(
+            torch, model.unembed(params, h16[:, :9]), model.unembed(params, h9))
+    del params, h16, h9
+    params = _drawn_weights(torch, model, torch.Generator(device="cuda").manual_seed(13))
+    out["params"] = sum(t.numel() for t in tree_paths(params).values())
+    with torch.no_grad():
+        h, _ = model.forward(params, {"tokens": tokens, "frames": frames})
+        want = model.unembed(params, h)                              # (2, 16, V)
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :P],
+                                               "frames": frames}, 32)
+        out["prefill_rel_err"] = _rel(torch, logits, want[:, P - 1])
+        enc = model.encode(params, frames)
+        xk = [L._project(enc, _index(params["layers"], g)["l0"]["xattn"]["wk"])
+              for g in range(cfg.n_groups)]
+        got = cache["l0"]["cross"]["k"].float()
+        out["cross_cache_rel_err"] = _rel(torch, got, torch.stack(xk))
+        f32 = model.init_cache(2, 32, enc_len=64, cache_dtype=torch.float32,
+                               device="cuda")
+        for g in range(cfg.n_groups):
+            sub = _index(params["layers"], g)["l0"]["xattn"]
+            f32["l0"]["cross"]["k"][g] = L._project(enc, sub["wk"])
+            f32["l0"]["cross"]["v"][g] = L._project(enc, sub["wv"])
+        errs = []
+        for pos in range(tokens.shape[1]):
+            step, f32 = model.decode_step(params, f32, tokens[:, pos:pos + 1], pos)
+            if pos >= P:
+                errs.append(_rel(torch, step, want[:, pos]))
+    out["decode_rel_err"] = errs
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    assert max([out["prefill_rel_err"]] + errs) < ENCDEC_RTOL, out
+    # bf16 rounding of float32 projections: within half a bf16 step
+    assert out["cross_cache_rel_err"] < 2.0 ** -8, out
+    del params, cache, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reduced_families_agree(torch):
+    """The reduced llama4-scout, jamba and seamless on the card against the
+    port on the CPU in float32, weights from ``_drawn_weights`` (bf16, or
+    init_params' weights, would route tokens differently on the routers'
+    near-ties, see tests/test_torch_families.py): a prefill and three
+    decode steps."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    out = {}
+    for arch in ("llama4-scout-17b-a16e", "jamba-v0.1-52b", "seamless-m4t-medium"):
+        small = Model(dataclasses.replace(reduced(get_config(arch)), dtype="float32"))
+        p_cpu = _drawn_weights(torch, small, torch.Generator().manual_seed(0))
+        p_card = _to(torch, p_cpu, "cuda")
+        gen = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(2, small.cfg.vocab, (2, 64), generator=gen)}
+        if small.cfg.is_encdec:
+            batch["frames"] = torch.randn((2, 16, small.cfg.d_model), generator=gen)
+        errs = []
+        with torch.no_grad():
+            lg, cache = small.prefill(p_card, _to(torch, batch, "cuda"), 128)
+            rl, rcache = small.prefill(p_cpu, batch, 128)
+            errs.append(_rel(torch, lg, rl))
+            tok = rl.argmax(-1)[:, None]
+            for i in range(3):
+                lg, cache = small.decode_step(p_card, cache, tok.cuda(), 64 + i)
+                rl, rcache = small.decode_step(p_cpu, rcache, tok, 64 + i)
+                errs.append(_rel(torch, lg, rl))
+                tok = rl.argmax(-1)[:, None]
+        assert torch.isfinite(lg).all() and max(errs) < CARD_VS_CPU_F32_RTOL, (arch, errs)
+        out[arch] = errs
+    return out
+
+
+def phase_family_checks(torch):
+    out = {}
+    for name, check in (("moe_vs_expert_loop", _moe_vs_loop),
+                        ("mamba_full_vs_steps", _mamba_full_vs_steps),
+                        ("encdec_vs_forward", _encdec_checks),
+                        ("reduced_card_vs_cpu_f32", _reduced_families_agree)):
+        t0 = time.perf_counter()
+        out[name] = check(torch)
+        torch.cuda.empty_cache()
+        log(f"phase 9: {name} ({time.perf_counter() - t0:.1f} s): {out[name]}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2092,11 +2450,22 @@ def main() -> int:
     dense, dense_counts = phase_dense_serve(torch, ops)
     log(f"launches on the dense serve path: {dense_counts}")
     done("phase 6")
+    families = {}
+    for phase, arch in (("phase 7", "jamba-v0.1-52b"),
+                        ("phase 8", "llama4-scout-17b-a16e")):
+        families[arch], fam_counts = phase_family_serve(torch, ops, phase, arch)
+        log(f"launches on the {arch} serve path: {fam_counts}")
+        done(phase)
+    checks = phase_family_checks(torch)
+    done("phase 9")
     for row in rows:
         row["launches"] = counts[row["name"]]
     log(json.dumps({"phase3_events": events, "phase4_train_qwen3_8b_depth1": train,
                     "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
-                    "phase6_serve_qwen3_8b": dense, "phase_s": phase_s,
+                    "phase6_serve_qwen3_8b": dense,
+                    "phase7_serve_jamba_v0_1_52b_1_group": families["jamba-v0.1-52b"],
+                    "phase8_serve_llama4_scout_depth4": families["llama4-scout-17b-a16e"],
+                    "phase9_checks": checks, "phase_s": phase_s,
                     "card": smi, "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,15 @@ The port of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked).  Weights are
 random, drawn on the device from a generator seeded with 0 and cast to
 bf16, as the reference's are; prompts come from numpy's generator seeded
-with 0.  The dense attention archs (qwen3-8b, the default, qwen2.5-14b,
-stablelm-12b, gemma2-9b, paligemma-3b without its image prefix) and
-rwkv6-1.6b serve; the other families raise ``NotImplementedError``
-(ROADMAP A2).  ``--ckpt-dir`` exits with an error, as in the reference.  The int8 compressed tensor-parallel reduction (RWKV only) is
-switched on as in the reference: ``models.rwkv.PERF_FLAGS["compressed_tp"]``
-plus an active ``parallel.activation_context``.
+with 0.  Every arch builds.  The dense attention archs (qwen3-8b, the
+default), paligemma-3b without its image prefix, rwkv6-1.6b, llama4 and
+jamba serve.  seamless-m4t-medium prints the reference's note and then
+fails as the reference does: the engine passes no ``frames``, so its
+prefill raises ``KeyError: 'frames'``.  ``--ckpt-dir`` exits with an
+error, as in the reference.  The int8 compressed tensor-parallel
+reduction (RWKV only) is switched on as in the reference:
+``models.rwkv.PERF_FLAGS["compressed_tp"]`` plus an active
+``parallel.activation_context``.
 
 Usage (on the card; ``--reduced --device cpu`` on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
@@ -45,11 +48,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args):
-    """(cfg, model, params) for ``args``: bf16 weights on the device."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+def build(args, cfg=None):
+    """(cfg, model, params) for ``args``: bf16 weights on the device.
+    ``cfg`` replaces ``args.arch``'s config (a depth-cut one, say)."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
     if cfg.is_encdec or cfg.n_img_tokens:
         print(f"note: {cfg.name} serving uses the LM decoder path with "
               "stub modality inputs omitted")

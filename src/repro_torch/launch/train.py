@@ -6,9 +6,9 @@ preconditioners run by the port's kernels on the card) -> resume.  The
 flags are the reference's, plus ``--device`` (default ``cuda``; ``cpu``
 only when asked).  Weights are random, drawn on the device from a
 generator seeded with 0; the shards are synthetic tokens from numpy's
-generator, as in the reference.  The dense attention archs and
-rwkv6-1.6b train; the other families raise ``NotImplementedError``
-(ROADMAP A2).
+generator, as in the reference.  Every arch trains; an encoder-decoder
+arch gets the reference's stub ``frames`` (0.01 everywhere, min(S, 64)
+of them), a VLM its stub ``patches``.
 
 A checkpoint of either package resumes in either driver: the state is
 saved under the reference's tree paths (``params``, ``opt.{m,v,count}``,
@@ -87,20 +87,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build(args):
-    """(cfg, model) for ``args``; an unported family raises here."""
+    """(cfg, model) for ``args``."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    model = Model(cfg)
-    model.param_specs()          # MoE, Mamba, enc-dec: ROADMAP A2
-    return cfg, model
+    return cfg, Model(cfg)
 
 
 def build_batch(cfg, raw, accum: int, device):
-    """numpy pipeline batch -> model batch on ``device`` (adds the image
-    prefix stub)."""
+    """numpy pipeline batch -> model batch on ``device`` (adds the frames
+    and image prefix stubs)."""
     b = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
     B, S = b["tokens"].shape
+    if cfg.is_encdec:
+        b["frames"] = torch.full((B, min(S, 64), cfg.d_model), 0.01,
+                                 dtype=torch.float32, device=device)
     if cfg.n_img_tokens:
         b["patches"] = torch.full((B, cfg.n_img_tokens, cfg.d_model), 0.01,
                                   dtype=torch.float32, device=device)

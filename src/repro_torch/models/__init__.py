@@ -1,7 +1,7 @@
 """repro_torch.models — the port of the unified LM stack: the dense
-attention families and RWKV-6 (MoE, Mamba and encoder-decoder stacks are
-ROADMAP A2).  Parameters are nested dicts of tensors with the reference's
-paths and layouts."""
+attention families, RWKV-6, the MoE FFN, the Mamba mixer and the
+encoder-decoder stack.  Parameters are nested dicts of tensors with the
+reference's paths and layouts."""
 
 from .config import LayerPattern, ModelConfig
 from .model import Model

@@ -1,4 +1,4 @@
-"""The unified Model, ported: the dense attention stacks and RWKV-6.
+"""The unified Model, ported: every architecture of the registry.
 
 The port of ``repro/models/model.py``.  The config's ``pattern`` of
 ``(mixer, ffn)`` pairs is unrolled inside one group; the groups run in a
@@ -6,11 +6,12 @@ loop over the leading ``layers`` dim of the group-stacked parameters (the
 reference scans them).  Parameters are the reference's nested dict, with
 its dotted paths and layouts, passed to every entry point as in the
 reference, so a checkpoint of either package loads into either model by
-name.  Ported: the ``attn`` and ``local`` mixers with the ``dense`` FFN
-(qwen3, qwen2.5, stablelm, gemma2 with its post-norms, paligemma with its
-image prefix) and RWKV-6.  The ``moe`` FFN, the ``mamba`` mixer, cross
-attention and the encoder-decoder path raise ``NotImplementedError``
-(ROADMAP A2).
+name.  The mixers are ``attn``, ``local``, ``mamba`` and ``rwkv``; the
+FFNs ``dense``, ``moe`` and RWKV's channel mix; cross attention and the
+encoder (a loop over its groups, the reference scans them) serve the
+encoder-decoder stack, whose ``frames`` (B, T, d) stand in for the
+modality frontend.  ``forward`` sums the MoE layers' aux losses over the
+groups.
 
 Entry points:
   forward(params, batch)                -> (hidden (B,S,d), aux)
@@ -20,8 +21,9 @@ Entry points:
 
 ``decode_step`` takes ``pos`` as a Python int (the mask is built without
 a host sync).  It writes the step's keys and values into the KV cache in
-place, at slot ``pos``; the recurrent states it returns are new tensors,
-one stack a leaf, as in the RWKV-only port.
+place, at slot ``pos``; the recurrent states it returns (RWKV's, Mamba's)
+are new tensors, one stack a leaf, and the static cross cache is the one
+given.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ import torch
 from torch import nn
 
 from . import layers as L
+from . import moe as M
 from . import rwkv as R
+from . import ssm as SSM
 from .config import ModelConfig
 from .specs import ParamSpec, init_params, tree_paths, _unflatten
 from ..checkpoint.manager import _resolve_device
@@ -100,28 +104,31 @@ class Model(nn.Module):
             sp["attn"] = L.attn_specs(cfg)
             if cfg.post_norm:
                 sp["post_ln1"] = L.norm_specs(cfg.d_model)
+        elif pe.mixer == "mamba":
+            sp["mamba"] = SSM.mamba_specs(cfg)
         elif pe.mixer == "rwkv":
             sp["tm"] = R.rwkv_time_specs(cfg)
         else:
-            raise L.not_ported(f"the {pe.mixer!r} mixer", "A2")
+            raise ValueError(pe.mixer)
         if cfg.cross_attn:
-            raise L.not_ported("cross attention", "A2")
+            sp["ln_x"] = L.norm_specs(cfg.d_model)
+            sp["xattn"] = L.attn_specs(cfg, cross=True)
         if pe.ffn != "none":
             sp["ln2"] = L.norm_specs(cfg.d_model)
             if pe.ffn == "dense":
                 sp["ffn"] = L.ffn_specs(cfg.d_model, cfg.d_ff)
+            elif pe.ffn == "moe":
+                sp["moe"] = M.moe_specs(cfg)
             elif pe.ffn == "rwkv_cm":
                 sp["cm"] = R.rwkv_channel_specs(cfg)
             else:
-                raise L.not_ported(f"the {pe.ffn!r} FFN", "A2")
-            if cfg.post_norm and pe.ffn == "dense":
+                raise ValueError(pe.ffn)
+            if cfg.post_norm and pe.ffn in ("dense", "moe"):
                 sp["post_ln2"] = L.norm_specs(cfg.d_model)
         return sp
 
     def param_specs(self) -> dict:
         cfg = self.cfg
-        if cfg.is_encdec:
-            raise L.not_ported("the encoder-decoder path", "A2")
         group = {f"l{j}": self._layer_specs(pe) for j, pe in enumerate(cfg.pattern)}
         sp = {
             "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=1.0),
@@ -130,7 +137,22 @@ class Model(nn.Module):
         }
         if not cfg.tie_embeddings:
             sp["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+        if cfg.is_encdec:
+            sp["encoder"] = {
+                "layers": _stack_specs({"l0": self._enc_layer_specs()},
+                                       cfg.n_enc_layers),
+                "final_norm": L.norm_specs(cfg.d_model),
+            }
         return sp
+
+    def _enc_layer_specs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "ln1": L.norm_specs(cfg.d_model),
+            "attn": L.attn_specs(cfg),
+            "ln2": L.norm_specs(cfg.d_model),
+            "ffn": L.ffn_specs(cfg.d_model, cfg.d_ff),
+        }
 
     def init(self, generator: torch.Generator, dtype=torch.float32):
         """Parameters drawn from ``generator``, on its device."""
@@ -168,10 +190,12 @@ class Model(nn.Module):
     # one group of layers (forward / prefill / decode share this)
     # ------------------------------------------------------------------
 
-    def _apply_group(self, gp, x, *, positions, prefix_len, cache_g=None,
-                     cache_pos=None, build_cache=0):
-        """Unrolled pattern application.  Returns (x, new_cache_g)."""
+    def _apply_group(self, gp, x, *, positions, prefix_len, enc_out=None,
+                     cache_g=None, cache_pos=None, build_cache=0):
+        """Unrolled pattern application.  Returns (x, aux, new_cache_g); aux
+        is the group's summed MoE aux losses, None where it has no MoE."""
         cfg = self.cfg
+        aux = None
         decoding = cache_g is not None
         new_cache = {}
         x = constrain(x, ("dp", None, None))
@@ -196,6 +220,16 @@ class Model(nn.Module):
                 if cfg.post_norm:
                     attn_out = L.rms_norm(sub["post_ln1"], attn_out, cfg.norm_eps)
                 x = x + attn_out
+            elif pe.mixer == "mamba":
+                if decoding:
+                    mx, nc["ssm_state"] = SSM.mamba_step(sub["mamba"], h,
+                                                         lcache["ssm_state"], cfg)
+                elif build_cache:
+                    mx, nc["ssm_state"] = SSM.mamba(sub["mamba"], h, cfg,
+                                                    return_state=True)
+                else:
+                    mx = SSM.mamba(sub["mamba"], h, cfg)
+                x = x + mx
             else:                                       # rwkv
                 tmx, (last_x, s_fin) = R.rwkv_time_mix(
                     sub["tm"], h, cfg,
@@ -205,46 +239,91 @@ class Model(nn.Module):
                     nc["tm_shift"] = last_x
                     nc["tm_state"] = s_fin
                 x = x + tmx
+            # ---- cross attention (enc-dec decoder)
+            if cfg.cross_attn:
+                hx = L.rms_norm(sub["ln_x"], x, cfg.norm_eps)
+                if decoding:
+                    xout, _ = L.attention(sub["xattn"], hx, cfg, mode="bidir",
+                                          cache=lcache["cross"], update_cache=False)
+                    nc["cross"] = lcache["cross"]
+                else:
+                    xout, _ = L.attention(sub["xattn"], hx, cfg, mode="bidir",
+                                          kv_input=enc_out)
+                    if build_cache:
+                        # cross kv cache: the encoder's projections, once
+                        nc["cross"] = {
+                            "k": L._project(enc_out, sub["xattn"]["wk"]).to(torch.bfloat16),
+                            "v": L._project(enc_out, sub["xattn"]["wv"]).to(torch.bfloat16)}
+                x = x + xout
             # ---- ffn
-            if pe.ffn == "dense":
+            if pe.ffn != "none":
                 h2 = L.rms_norm(sub["ln2"], x, cfg.norm_eps)
-                f = L.ffn(sub["ffn"], h2, cfg.ffn_act)
-                if cfg.post_norm:
+                if pe.ffn == "dense":
+                    f = L.ffn(sub["ffn"], h2, cfg.ffn_act)
+                elif pe.ffn == "moe":
+                    f, moe_aux = M.moe_ffn(sub["moe"], h2, cfg)
+                    aux = moe_aux if aux is None else \
+                        {k: aux[k] + moe_aux[k] for k in aux}
+                else:                                   # rwkv channel mix
+                    f, cm_last = R.rwkv_channel_mix(
+                        sub["cm"], h2, cfg,
+                        shift_carry=lcache.get("cm_shift") if decoding else None)
+                    if decoding or build_cache:
+                        nc["cm_shift"] = cm_last
+                if cfg.post_norm and pe.ffn in ("dense", "moe"):
                     f = L.rms_norm(sub["post_ln2"], f, cfg.norm_eps)
-                x = x + f
-            elif pe.ffn == "rwkv_cm":
-                h2 = L.rms_norm(sub["ln2"], x, cfg.norm_eps)
-                f, cm_last = R.rwkv_channel_mix(
-                    sub["cm"], h2, cfg,
-                    shift_carry=lcache.get("cm_shift") if decoding else None)
-                if decoding or build_cache:
-                    nc["cm_shift"] = cm_last
                 x = x + f
             x = constrain(x, ("dp", None, None))
             new_cache[key] = nc
-        return x, new_cache
+        return x, aux, new_cache
+
+    # ------------------------------------------------------------------
+    # encoder (enc-dec archs)
+    # ------------------------------------------------------------------
+
+    def encode(self, params, frames):
+        """frames: (B, T, d) precomputed modality embeddings (stub frontend)."""
+        cfg = self.cfg
+        x = frames.to(_DTYPES[cfg.dtype])
+        enc = params["encoder"]
+        for g in range(cfg.n_enc_layers):
+            sub = _index(enc["layers"], g)["l0"]
+            h = L.rms_norm(sub["ln1"], x, cfg.norm_eps)
+            a, _ = L.attention(sub["attn"], h, cfg, mode="bidir")
+            x = x + a
+            h2 = L.rms_norm(sub["ln2"], x, cfg.norm_eps)
+            x = x + L.ffn(sub["ffn"], h2, cfg.ffn_act)
+        return L.rms_norm(enc["final_norm"], x, cfg.norm_eps)
 
     def _inputs_to_x(self, params, batch):
-        """tokens (+ image patches) -> (x, positions, prefix_len)."""
+        """tokens (+ image patches, + frames) -> (x, positions, prefix_len,
+        enc_out)."""
         cfg = self.cfg
         x = self.embed(params, batch["tokens"])
         prefix_len = 0
+        enc_out = None
         if cfg.n_img_tokens and "patches" in batch:
             patches = batch["patches"].to(x.dtype)          # (B, P, d) stub
             x = torch.cat([patches, x], dim=1)
             prefix_len = patches.shape[1]
+        if cfg.is_encdec:
+            enc_out = self.encode(params, batch["frames"])
         B, S2 = x.shape[0], x.shape[1]
         positions = torch.arange(S2, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S2)
-        return x, positions, prefix_len
+        return x, positions, prefix_len, enc_out
 
     def forward(self, params, batch):
-        x, positions, prefix_len = self._inputs_to_x(params, batch)
+        x, positions, prefix_len, enc_out = self._inputs_to_x(params, batch)
+        aux = _zero_aux(x.device)
         for g in range(self.cfg.n_groups):
-            x, _ = self._apply_group(_index(params["layers"], g), x,
-                                     positions=positions, prefix_len=prefix_len)
+            x, gaux, _ = self._apply_group(_index(params["layers"], g), x,
+                                           positions=positions,
+                                           prefix_len=prefix_len, enc_out=enc_out)
+            if gaux is not None:
+                aux = {k: aux[k] + gaux[k] for k in aux}
         x = L.rms_norm(params["final_norm"], x, self.cfg.norm_eps)
-        return constrain(x, ("dp", None, None)), _zero_aux(x.device)
+        return constrain(x, ("dp", None, None)), aux
 
     # ------------------------------------------------------------------
     # loss (chunked cross-entropy: no (B, S, V) float32 logits at once)
@@ -286,50 +365,55 @@ class Model(nn.Module):
     # serving: cache init / prefill / decode
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch_size: int, max_len: int,
+    def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
                    cache_dtype=torch.bfloat16, device=None):
         """The decode state, stacked over the groups: a KV cache of
         ``(n_groups, B, max_len, KV, Dh)`` for each attention layer, the
-        recurrent state of each RWKV layer, on ``device`` (default: the
-        GPU; raises when there is none)."""
+        recurrent state of each RWKV and Mamba layer, and a cross cache of
+        ``enc_len`` slots where the decoder cross-attends, on ``device``
+        (default: the GPU; raises when there is none)."""
         cfg = self.cfg
         device = _resolve_device(device)
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=cache_dtype, device=device)
+
         g = {}
         for j, pe in enumerate(cfg.pattern):
             e: dict = {}
             if pe.mixer in ("attn", "local"):
                 shape = (batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
-                e["self"] = {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
-                             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
+                e["self"] = {"k": zeros(shape), "v": zeros(shape)}
+            elif pe.mixer == "mamba":
+                e["ssm_state"] = SSM.init_mamba_state(cfg, batch_size, device=device)
             elif pe.mixer == "rwkv":
                 st = R.init_rwkv_state(cfg, batch_size, device=device)
                 e["tm_shift"], e["tm_state"] = st["tm_shift"], st["tm_state"]
-            else:
-                raise L.not_ported(f"the {pe.mixer!r} decode cache", "A2")
             if cfg.cross_attn:
-                raise L.not_ported("the cross-attention cache", "A2")
+                xs = (batch_size, enc_len, cfg.n_kv_heads, cfg.d_head)
+                e["cross"] = {"k": zeros(xs), "v": zeros(xs)}
             if pe.ffn == "rwkv_cm":
-                e["cm_shift"] = torch.zeros((batch_size, cfg.d_model),
-                                            dtype=cache_dtype, device=device)
+                e["cm_shift"] = zeros((batch_size, cfg.d_model))
             g[f"l{j}"] = e
         return _stack([g] * cfg.n_groups)
 
     def prefill(self, params, batch, max_len: int):
         """Run the prompt, build the cache (a bf16 KV cache, as in the
         reference).  Returns (last-pos logits, cache)."""
-        x, positions, prefix_len = self._inputs_to_x(params, batch)
+        x, positions, prefix_len, enc_out = self._inputs_to_x(params, batch)
         caches = []
         for g in range(self.cfg.n_groups):
-            x, nc = self._apply_group(_index(params["layers"], g), x,
-                                      positions=positions, prefix_len=prefix_len,
-                                      build_cache=max_len)
+            x, _, nc = self._apply_group(_index(params["layers"], g), x,
+                                         positions=positions, prefix_len=prefix_len,
+                                         enc_out=enc_out, build_cache=max_len)
             caches.append(nc)
         x = L.rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         return self.unembed(params, x[:, -1]), _stack(caches)
 
     def decode_step(self, params, cache, token, pos: int):
         """token: (B, 1) int; pos: the next position index, a Python int.
-        Returns (logits (B, V), new cache); the KV leaves are ``cache``'s."""
+        Returns (logits (B, V), new cache); the KV and cross leaves are
+        ``cache``'s."""
         cfg = self.cfg
         x = self.embed(params, token)
         positions = None                    # rope's; a recurrence needs none
@@ -339,9 +423,9 @@ class Model(nn.Module):
         views, caches = [], []
         for g in range(cfg.n_groups):
             views.append(_index(cache, g))
-            x, nc = self._apply_group(_index(params["layers"], g), x,
-                                      positions=positions, prefix_len=0,
-                                      cache_g=views[-1], cache_pos=pos)
+            x, _, nc = self._apply_group(_index(params["layers"], g), x,
+                                         positions=positions, prefix_len=0,
+                                         cache_g=views[-1], cache_pos=pos)
             caches.append(nc)
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x[:, -1]), _restack(cache, views, caches)

@@ -5,7 +5,7 @@ The reference's context holds a JAX mesh and names its TP axis
 process groups: ``tp`` for the tensor-parallel collectives, ``dp`` for the
 data-parallel axis (``None``: one replica).  Model code reads it through
 ``_CTX``.  ``constrain`` keeps the reference's call sites and is a no-op:
-DTensor placements arrive with ROADMAP A8.
+DTensor placements arrive with ROADMAP A7.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ the scales over the TP group, and dequant-sums locally (the ``qunpack``
 kernel: sum over k of q_k * s_k in float32, cast to the output type).
 
 Every rank holds the whole of ``y`` and ``w`` (the port shards no weights
-yet, ROADMAP A8) and computes the partial of its own slice of E; the
+yet, ROADMAP A7) and computes the partial of its own slice of E; the
 output is replicated over the TP group, as the reference's is.  Without an
 activation context, or where E % k or B % dp fails, it is a plain matmul.
 """

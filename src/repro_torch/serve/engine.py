@@ -3,10 +3,12 @@
 The port of ``repro/serve/engine.py``: a fixed pool of B cache slots,
 prefill and decode steps of one model, finished slots refilled from the
 queue (continuous batching).  Decode state is one group-stacked cache tree
-(a KV cache for attention layers, the recurrent state for RWKV ones) so
-one ``decode_step`` serves all slots; a prefill's rows are copied into the
-slots it fills, and each decode step writes its keys and values into the
-KV cache in place and returns new recurrent states.  Prompts
+(a KV cache for attention layers, the recurrent state for RWKV and Mamba
+ones) so one ``decode_step`` serves all slots; a prefill's rows are copied
+into the slots it fills, cast to the engine cache's types (Mamba's conv
+tail comes out of the prefill in the compute type and is kept in
+float32), and each decode step writes its keys and values into the KV
+cache in place and returns new recurrent states.  Prompts
 admitted together are left-padded with token 0 to one length and
 prefilled as they are: the pad is attended to, or runs through the
 recurrence, as in the reference.
@@ -40,12 +42,13 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None = None
 
 
 def _write_rows(full: dict, new: dict, rows: torch.Tensor) -> None:
-    """full[:, rows] = new[:, rows] for every leaf of a cache tree."""
+    """full[:, rows] = new[:, rows] for every leaf of a cache tree, cast
+    to full's type."""
     for k, v in full.items():
         if isinstance(v, dict):
             _write_rows(v, new[k], rows)
         else:
-            v[:, rows] = new[k][:, rows]
+            v[:, rows] = new[k][:, rows].to(v.dtype)
 
 
 @dataclasses.dataclass

@@ -2,7 +2,8 @@
 
 For each dense architecture at its ``reduced()`` config (qwen3-8b,
 qwen2.5-14b, stablelm-12b, gemma2-9b, and paligemma-3b with and without its
-image prefix): the parameter specs path by path, ``forward``'s hidden
+image prefix): the parameter specs path by path (also those of the MoE,
+Mamba and encoder-decoder archs), ``forward``'s hidden
 states, ``loss`` with its metrics, the prefill's logits and KV cache, three
 decode steps, and for qwen3-8b the greedy tokens of both serve engines.
 The weights are drawn with numpy and carried across with
@@ -51,6 +52,10 @@ F32_RTOL = 1e-5
 CASES = [("qwen3-8b", False), ("qwen2.5-14b", False), ("stablelm-12b", False),
          ("gemma2-9b", False), ("paligemma-3b", False), ("paligemma-3b", True)]
 IDS = [a + ("-patches" if p else "") for a, p in CASES]
+# the MoE, Mamba and encoder-decoder archs: specs here, the rest in
+# tests/test_torch_families.py
+FAMILIES = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b", "jamba-v0.1-52b",
+            "seamless-m4t-medium"]
 B, S, MAX_LEN, S_CHUNK, STEPS = 2, 16, 32, 8, 3
 PROMPTS = [10, 16, 16]          # 10 left-padded to 16, then one more admission
 SLOTS, MAX_NEW = 2, 5
@@ -165,7 +170,7 @@ def _port_batch(ref: dict, keys=("tokens", "targets", "loss_mask", "patches")) -
 # specs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", sorted({a for a, _ in CASES}))
+@pytest.mark.parametrize("arch", sorted({a for a, _ in CASES} | set(FAMILIES)))
 def test_param_specs_match_reference(arch):
     cfg, port = _cfg(arch, False)
     want = jax_tree_paths(JaxModel(cfg).param_specs())
@@ -179,13 +184,6 @@ def test_param_specs_match_reference(arch):
     for path, ref in jax_tree_paths(JaxModel(cfg).abstract(jnp.bfloat16)).items():
         assert meta[path].is_meta and tuple(meta[path].shape) == ref.shape, path
         assert meta[path].dtype == torch.bfloat16, path
-
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "llama4-scout-17b-a16e",
-                                  "seamless-m4t-medium"])
-def test_unported_families_name_their_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        Model(configs.reduced(configs.get_config(arch))).param_specs()
 
 
 @pytest.mark.parametrize("flag", ["rms_einsum", "softmax_bf16_probs"])

@@ -37,6 +37,7 @@ def test_port_imports_with_jax_and_repro_blocked():
 import repro_torch, repro_torch.checkpoint, repro_torch.kernels.ops
 import repro_torch.data, repro_torch.repair
 import repro_torch.configs, repro_torch.models, repro_torch.parallel
+import repro_torch.models.moe, repro_torch.models.ssm
 import repro_torch.serve, repro_torch.launch.serve
 import repro_torch.train, repro_torch.launch.train
 repro_torch.configs.get_config("rwkv6-1.6b")

@@ -29,6 +29,7 @@ import torch.distributed as dist  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.checkpoint import save_pytree as jax_save  # noqa: E402
 from repro.configs import paper_io as jpaper_io  # noqa: E402
+from repro.launch import serve as jax_launch_serve  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import rwkv as jrwkv  # noqa: E402
 from repro.models.specs import _unflatten  # noqa: E402
@@ -301,13 +302,19 @@ def test_launch_serve_dense_on_the_cpu(arch, capsys):
     assert capsys.readouterr().out.startswith("3 requests, 12 tokens in ")
 
 
-def test_launch_serve_refuses(monkeypatch):
+def test_launch_serve_refuses(monkeypatch, capsys):
     with pytest.raises(SystemExit):
         launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                            "--ckpt-dir", "ckpt"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        launch_serve.main(["--arch", "llama4-scout-17b-a16e", "--reduced",
-                           "--device", "cpu"])
+    # the encoder-decoder arch: both drivers print their note, then the
+    # engine's prefill finds no frames, in the reference as in the port
+    argv = ["--arch", "seamless-m4t-medium", "--reduced", "--requests", "2"]
+    for main in (jax_launch_serve.main,
+                 lambda a: launch_serve.main(a + ["--device", "cpu"])):
+        with pytest.raises(KeyError, match="frames"):
+            main(argv)
+        assert capsys.readouterr().out.startswith(
+            "note: seamless-m4t-medium-smoke serving uses the LM decoder path")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.build(launch_serve.parse_args(["--arch", ARCH, "--reduced"]))

@@ -79,12 +79,6 @@ def test_preempt_and_resume_as_a_module(tmp_path):
     assert [m["loss"] for m in _log(whole)] == [m["loss"] for m in log]
 
 
-def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        port_train.main(["--arch", "llama4-scout-17b-a16e", "--reduced",
-                         "--device", "cpu", "--steps", "1"])
-
-
 @pytest.fixture
 def float32_reduced(monkeypatch):
     """Both drivers' reduced configs, computing in float32."""
