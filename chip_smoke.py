@@ -46,11 +46,18 @@ runs, failing on the first error:
    profiled step beside the step's bound; the checkpoint restored through
    ``CheckpointManager`` bitwise against the live state, then the depth-1
    model on the restored weights cast to bf16 (a prefill of 2 x 64 tokens
-   and 3 decode steps), its logits bit-equal to the live weights'; then the
-   preemption drill on the reduced qwen3-8b, ``python -m
-   repro_torch.launch.train`` in child processes: preempted at step 3 with
-   exit 17, resumed by the same command without the preemption, step 6
-   against an uninterrupted run within ``DRILL_RTOL``;
+   and 3 decode steps), its logits bit-equal to the live weights'; then,
+   as phase 4b with its own seconds, the same live state saved again by
+   ``CheckpointManager(producers=4, tune=True)`` (the buffer merger and the
+   codec tuner under the reference's ``checkpoint`` objective), restored
+   bitwise, its params cast to bf16 and served (8 requests of 64 tokens,
+   greedy) with the tokens of the live weights, the tuner's decisions,
+   trials, walls and ratio printed beside the static save's, and
+   ``examples/serve_lm_torch.py`` run on the card; then the preemption drill
+   on the reduced qwen3-8b, ``python -m repro_torch.launch.train`` in
+   child processes that each lead a session of their own: preempted at
+   step 3 with exit 17, resumed by the same command without the
+   preemption, step 6 against an uninterrupted run within ``DRILL_RTOL``;
 5. rwkv6-1.6b served at full width through ``repro_torch.launch.serve``
    with the int8 compressed TP reduction on over a one-rank NCCL group:
    8 requests, greedy; one full-width compressed projection against
@@ -85,13 +92,17 @@ runs, failing on the first error:
 Launch counters are zeroed just before phase 3 and read after it (the
 event tree's save and restore), zeroed again just before phase 4's
 trainer and read after its save and after its restore (the main path),
+and before and after phase 4b's tuned save and its restore,
 zeroed before phase 5's serve run and read after it (the rwkv6 serve
 path), and again around the timed runs of phases 6, 7 and 8 (the dense,
 hybrid and MoE serve paths, which launch none of the port's kernels).  A kernel's ``launches`` in the
-JSON record is the sum over phases 3 and 4 (the checkpoint kernels) or
-phase 5 (qpack, qunpack).  Each phase prints its seconds.  The
-second-to-last line is the kernels' JSON record, the last line the device
-record.  Without a CUDA device it prints no result and exits 1.
+JSON record is the sum over phases 3, 4 and 4b (the checkpoint kernels)
+or phase 5 (qpack, qunpack).  Each phase prints its seconds.  At the end
+the script stops multiprocessing's forkserver and resource tracker and
+lists its descendants from ``/proc``: if any is still alive after 10 s it
+prints them and exits 1 with no result.  The second-to-last line is the
+kernels' JSON record, the last line the device record.  Without a CUDA
+device it prints no result and exits 1.
 """
 
 import contextlib
@@ -100,6 +111,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1304,6 +1316,76 @@ def phase_events(torch, np, tmp, workers):
 
 
 # ---------------------------------------------------------------------------
+# processes: this script's children, and what multiprocessing starts
+# ---------------------------------------------------------------------------
+
+def _proc_table() -> dict:
+    """{pid: {"ppid", "pgrp", "state"}} of every process, from /proc."""
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                stat = fh.read()
+        except OSError:                    # ended while the table was read
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[int(name)] = {"state": fields[0], "ppid": int(fields[1]),
+                          "pgrp": int(fields[2])}
+    return out
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+    except OSError:
+        return "?"
+
+
+def _live_processes(pick, wait_s: float = 10.0) -> list:
+    """[(pid, cmdline)] of the processes ``pick(table)`` names that are
+    still alive (zombies are not) after waiting up to ``wait_s``."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        table = _proc_table()
+        left = sorted(pid for pid in pick(table) if table[pid]["state"] not in "ZX")
+        if not left or time.monotonic() >= deadline:
+            return [(pid, _cmdline(pid)) for pid in left]
+        time.sleep(0.2)
+
+
+def _descendants(table: dict, root: int) -> set:
+    kids: dict = {}
+    for pid, st in table.items():
+        kids.setdefault(st["ppid"], []).append(pid)
+    out, todo = set(), [root]
+    while todo:
+        for k in kids.get(todo.pop(), []):
+            if k not in out:
+                out.add(k)
+                todo.append(k)
+    return out
+
+
+def live_descendants(wait_s: float = 10.0) -> list:
+    """[(pid, cmdline)] of this process's descendants still alive after
+    waiting up to ``wait_s``."""
+    me = os.getpid()
+    return _live_processes(lambda table: _descendants(table, me), wait_s)
+
+
+def stop_multiprocessing_helpers() -> None:
+    """Stop multiprocessing's forkserver and resource tracker, if this
+    process started them (the I/O engine's process pool and its
+    shared-memory slabs do); each waits for its process to end."""
+    from multiprocessing import forkserver, resource_tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: qwen3-8b train state, full width, depth 1
 # ---------------------------------------------------------------------------
 
@@ -1464,15 +1546,20 @@ def _step_phases(torch, model, state, batch):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def _preconditioners(path: str) -> dict:
-    """{preconditioner: branches} of a saved checkpoint, from its TOC."""
+def _configs(path: str) -> dict:
+    """{"algo-level precond": [branches, raw bytes, stored bytes]} of a
+    saved checkpoint, from its TOC."""
     from repro_torch.core.bfile import BasketFile
     out: dict = {}
     with BasketFile(path) as f:
         for name, entry in f.branches.items():
-            if name != "__meta__":
-                pre = entry["baskets"][0]["meta"]["precond"]
-                out[pre] = out.get(pre, 0) + 1
+            if name == "__meta__":
+                continue
+            c = entry["config"]
+            row = out.setdefault(f"{c['algo']}-{c['level']} {c['precond']}", [0, 0, 0])
+            row[0] += 1
+            row[1] += sum(b["meta"]["orig_len"] for b in entry["baskets"])
+            row[2] += sum(b["meta"]["comp_len"] for b in entry["baskets"])
     return out
 
 
@@ -1523,9 +1610,9 @@ def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
     stats = run.save_stats
     save_s = stats["wall_s"]
     ckpt = os.path.join(args.workdir, "ckpt", "ckpt-00000004.bskt")
-    precond = _preconditioners(ckpt)
-    log(f"phase 4: save stages (s): {save_stages}; preconditioners by branch: "
-        f"{precond}; launches on the save: {save_counts}")
+    configs = _configs(ckpt)
+    log(f"phase 4: save stages (s): {save_stages}; configs [branches, raw bytes, "
+        f"stored bytes]: {configs}; launches on the save: {save_counts}")
     # one more step on the live state under the profiler (its result dropped)
     step_fn = make_train_step(model, peak_lr=args.lr, warmup=5, total_steps=4,
                               compress_grads=True)
@@ -1570,26 +1657,151 @@ def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
         assert restore_counts[name] > 0, f"{name} not launched on the restore"
     counts = {k: save_counts[k] + restore_counts[k] for k in save_counts}
     step_ms_all = [x * 1e3 for x in run.step_seconds]
+    live = run.state
     del restored, back, run, tree, flat
     shutil.rmtree(args.workdir)
     return {"gb": nbytes / 1e9, "n_params": n_params, "losses": losses,
             "step_ms": step_ms, "step_ms_all": step_ms_all,
             "tok_per_s": tokens / step_ms * 1e3, "bound": bound,
             "peak_gb": peak_gb, "profile": prof, "save_s": save_s,
-            "restore_s": restore_s, "ratio": ratio, "preconditioners": precond,
+            "restore_s": restore_s, "ratio": ratio, "configs": configs,
             "save_stages_s": save_stages, "restore_stages_s": restore_stages,
-            "save_launches": save_counts, "restore_launches": restore_counts}, counts
+            "save_launches": save_counts, "restore_launches": restore_counts}, \
+        counts, live
+
+
+def run_example(name: str, argv: list) -> int:
+    """``examples/<name>.py``'s ``main(argv)``, in this process."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(argv)
+
+
+# phase 4b: the tuned, multi-producer save of the trainer's state
+TUNED_PRODUCERS = 4
+
+
+def phase_tuned_save(torch, np, tmp, ops, cfg, state, static, device="cuda"):
+    """The trainer's live state at step 4 saved by CheckpointManager with
+    ``producers=4`` and ``tune=True`` (the reference's ``checkpoint``
+    objective) on every core, restored bitwise name by name; the restored
+    params cast to bf16 serve 8 requests of 64 tokens (4 slots, 16 new,
+    greedy) with the tokens of the live weights cast to bf16; then
+    ``examples/serve_lm_torch.py`` on the card.  ``static`` holds phase 4's
+    save of the same state.  Returns (summary, launch counts of the save
+    and the restore)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.io import cpu_count
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Model
+    model = Model(cfg)
+    directory = os.path.join(tmp, "tuned")
+    tree = {"params": state.params, "opt": state.opt, "step": state.step,
+            "err": state.err}
+    flat = _flatten_with_paths(tree)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values() if t is not None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mgr = CheckpointManager(directory, workers=cpu_count(),
+                            producers=TUNED_PRODUCERS, tune=True)
+    ops.reset_launch_counts()
+    stage_seconds()
+    t0 = time.perf_counter()
+    try:
+        mgr.save(4, tree, wait=True)
+    finally:
+        mgr.wait()                               # the save thread is joined
+    save_s = time.perf_counter() - t0
+    save_counts = ops.launch_counts()
+    save_stages = stage_seconds()
+    stats = mgr.wait()
+    tuner = mgr._tuner
+    ratio = stats["raw"] / stats["comp"]
+    configs = _configs(os.path.join(directory, "ckpt-00000004.bskt"))
+    log(f"phase 4b: tuned save (producers={TUNED_PRODUCERS}, workers={cpu_count()}, "
+        f"objective {tuner.objective.name}): decisions by config [branches, raw "
+        f"bytes, stored bytes]: {configs}")
+    log(f"phase 4b: tuner: {tuner.stats['trials']} trials in "
+        f"{tuner.stats['trial_s']:.3f} s (tuned {tuner.stats['tuned']}, shared "
+        f"{tuner.stats['shared']}, reused {tuner.stats['reused']}, fallback "
+        f"{tuner.stats['fallback']}); save stages (s): {save_stages}; launches "
+        f"on the tuned save: {save_counts}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    restored, _ = mgr.restore(template=tree, device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_counts = ops.launch_counts()
+    restore_stages = stage_seconds()
+    back = _flatten_with_paths(restored)
+    for k, t in flat.items():
+        assert (back[k] is None) if t is None else same_bits(back[k], t), k
+    log(f"phase 4b: tuned save {save_s:.3f} s ({nbytes / save_s / 1e9:.3f} GB/s), "
+        f"ratio {ratio:.4f}; restore {restore_s:.3f} s, bitwise equal (restore "
+        f"stages (s): {restore_stages}; launches: {restore_counts}); phase 4's "
+        f"static save of the same state: {static['save_s']:.3f} s, ratio "
+        f"{static['ratio']:.4f}, restore {static['restore_s']:.3f} s")
+    args = launch_serve.parse_args(DENSE_ARGS + ["--device", device])
+    params = _to(torch, restored["params"], torch.bfloat16)
+    del restored, back
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out, serve_s = launch_serve.serve(model, params, args, cfg.vocab)
+    del params
+    live = _to(torch, state.params, torch.bfloat16)
+    want, _ = launch_serve.serve(model, live, args, cfg.vocab)
+    del live
+    torch.cuda.synchronize()
+    assert sorted(out) == sorted(want) == list(range(args.requests)), sorted(out)
+    for rid, toks in want.items():
+        assert len(toks) == args.max_new and np.array_equal(out[rid], toks), rid
+    n_tok = sum(len(v) for v in out.values())
+    log(f"phase 4b: the restored weights (bf16) served {len(out)} requests, "
+        f"{n_tok} tokens in {serve_s:.2f} s, tokens equal to the live weights'; "
+        f"peak device memory {peak_gb:.2f} GB")
+    t0 = time.perf_counter()
+    code = run_example("serve_lm_torch",
+                       ["--workdir", os.path.join(tmp, "serve_lm"), "--device", device])
+    example_s = time.perf_counter() - t0
+    assert code == 0, code
+    log(f"phase 4b: examples/serve_lm_torch.py on the card: {example_s:.1f} s")
+    shutil.rmtree(directory)
+    counts = {k: save_counts[k] + restore_counts[k] for k in save_counts}
+    return {"gb": nbytes / 1e9, "producers": TUNED_PRODUCERS,
+            "objective": tuner.objective.name, "save_s": save_s,
+            "restore_s": restore_s, "ratio": ratio, "configs": configs,
+            "tuner": dict(tuner.stats), "save_stages_s": save_stages,
+            "restore_stages_s": restore_stages, "save_launches": save_counts,
+            "restore_launches": restore_counts, "peak_gb": peak_gb,
+            "serve_s": serve_s, "example_s": example_s,
+            "static": {k: static[k] for k in ("save_s", "restore_s", "ratio")}}, counts
 
 
 def _drive_trainer(workdir, extra):
     """``python -m repro_torch.launch.train`` in a child process, on the
-    card unless ``extra`` names another device."""
+    card unless ``extra`` names another device.  The child leads a session
+    of its own: on a timeout or an error its whole process group is killed
+    and waited for; after a normal exit nothing of the group may be left
+    (checked, not killed)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                        "--workdir", workdir] + DRILL_ARGS + extra,
-                       capture_output=True, text=True, timeout=300, env=env,
-                       cwd=ROOT)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--workdir", workdir] + DRILL_ARGS + extra
+    child = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env=env, cwd=ROOT, start_new_session=True)
+    try:
+        out, err = child.communicate(timeout=300)
+    except BaseException:
+        os.killpg(child.pid, signal.SIGKILL)
+        child.communicate()
+        raise
+    left = _live_processes(lambda table: {pid for pid, st in table.items()
+                                          if st["pgrp"] == child.pid})
+    assert not left, f"the trainer's process group outlived it: {left}"
+    r = subprocess.CompletedProcess(cmd, child.returncode, out, err)
     return r, time.perf_counter() - t0
 
 
@@ -2424,17 +2636,24 @@ def main() -> int:
         done("phase 3")
         # the main path: the trainer's save, then its restore
         ops.reset_launch_counts()
-        train, train_counts = phase_train(torch, np, tmp, ops,
-                                          qwen3_8b_depth1_specs()[0])
-        torch.cuda.empty_cache()               # room for the drill's processes
+        cfg4 = qwen3_8b_depth1_specs()[0]
+        train, train_counts, live = phase_train(torch, np, tmp, ops, cfg4)
         log(f"launches on the trainer's save and restore: {train_counts}")
+        t4b = time.perf_counter()
+        tuned, tuned_counts = phase_tuned_save(torch, np, tmp, ops, cfg4, live, train)
+        del live
+        phase_s["phase 4b"] = time.perf_counter() - t4b
+        mark[0] += phase_s["phase 4b"]         # phase 4's seconds leave 4b out
+        log(f"launches on the tuned save and restore: {tuned_counts}")
+        log(f"phase 4b: {phase_s['phase 4b']:.1f} s")
+        torch.cuda.empty_cache()               # room for the drill's processes
         train["drill"] = phase_drill(torch, tmp)
         done("phase 4")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the restore undoes every delta of the save: one undelta a basket
     assert counts["undelta"] == counts["delta"] > 0, counts
-    counts = {k: counts[k] + train_counts[k] for k in counts}
+    counts = {k: counts[k] + train_counts[k] + tuned_counts[k] for k in counts}
     for name in ops.PRECOND_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the checkpoint path"
     import torch.distributed as dist
@@ -2461,12 +2680,18 @@ def main() -> int:
     for row in rows:
         row["launches"] = counts[row["name"]]
     log(json.dumps({"phase3_events": events, "phase4_train_qwen3_8b_depth1": train,
-                    "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
+                    "phase4b_tuned_save": tuned, "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
                     "phase6_serve_qwen3_8b": dense,
                     "phase7_serve_jamba_v0_1_52b_1_group": families["jamba-v0.1-52b"],
                     "phase8_serve_llama4_scout_depth4": families["llama4-scout-17b-a16e"],
                     "phase9_checks": checks, "phase_s": phase_s,
                     "card": smi, "wall_s": time.perf_counter() - t_start}))
+    stop_multiprocessing_helpers()
+    left = live_descendants(wait_s=10.0)
+    if left:
+        for pid, cmd in left:
+            log(f"still running: pid {pid}: {cmd}")
+        return 1
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2475,4 +2700,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_multiprocessing_helpers()
+    sys.exit(code)

@@ -9,8 +9,10 @@ integers) and every basket carries the adler32 of its raw bytes.
 What moves onto the GPU is the preconditioner.  For a CUDA tensor, each
 basket is preconditioned on the card by the kernels of
 :mod:`repro_torch.kernels`; the preconditioned bytes and the raw bytes (for
-the checksum) come down to pinned host buffers on a side stream, at most
-``stage_depth`` baskets ahead, and only the codec runs on the host.  Restore
+the checksum) come down to pinned host buffers on the same stream, at most
+``stage_depth`` baskets ahead, and only the codec runs on the host.  Every
+producer thread stages on a stream of its own, which first waits for the
+work the caller had queued when the save began.  Restore
 is the mirror: the codec decodes on the host, the bytes go up, and the
 inverse kernel writes straight into the destination tensor's slice; every
 basket's raw checksum is verified before :func:`load_pytree` returns.  A
@@ -23,13 +25,17 @@ the manifest), resumable ``latest_step``, retention, parity sidecars and
 ``CheckpointManager.save`` snapshots the state on its device first (see
 :meth:`CheckpointManager.save`).
 
-Not ported yet (ROADMAP.md queue A): ``producers>1`` (buffer merger),
-``tuner=``/``objective=``/``tune=`` (measured codec selection),
-``load_pytree(prefetch>0)`` and ``shardings=``.
+``producers>1`` shards the tensor list across producer threads that fill
+:class:`~repro_torch.io.merger.BasketBuffer` s drained by one
+:class:`~repro_torch.io.merger.BufferMerger`; ``tuner=``/``objective=``/
+``tune=`` choose each branch's codec by measurement (:mod:`repro_torch.tune`)
+from the same probe the static policy reads.  Not ported yet (ROADMAP.md
+A9 and A7): ``load_pytree(prefetch>0)`` and ``shardings=``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -74,7 +80,7 @@ _TORCH_DTYPE = {np.dtype(v).str: k for k, v in _NP_DTYPE.items()
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{option} is not ported to repro_torch yet: "
-                               f"ROADMAP.md queue A, '{item}'")
+                               f"ROADMAP.md {item}")
 
 
 def _flatten_with_paths(tree) -> dict[str, Any]:
@@ -174,44 +180,36 @@ def _cpu_chunks(xb: torch.Tensor, spans, spec: str):
 
 def _gpu_chunks(xb: torch.Tensor, spans, spec: str, stage_depth: int,
                 host_raw: Optional[torch.Tensor], first_raw: torch.Tensor):
-    """Precondition each basket on the card (current stream), then bring its
-    preconditioned and raw bytes down on a side stream, ``stage_depth``
-    baskets ahead of the consumer.  ``host_raw`` already holds every raw
-    byte (gather staging); else ``first_raw`` holds the first basket's (the
-    policy probe) and the others come down one by one."""
-    main = torch.cuda.current_stream(xb.device)
-    side = torch.cuda.Stream(xb.device)
+    """Precondition each basket on the card, then bring its preconditioned
+    and raw bytes down, kernels and copies on the current stream,
+    ``stage_depth`` baskets ahead of the consumer.  ``host_raw`` already
+    holds every raw byte (gather staging); else ``first_raw`` holds the
+    first basket's (the policy probe) and the others come down one by one."""
     pending: deque = deque()
 
     def start(i, span):
         s, count, lo, hi = span
         raw = xb[lo:hi]
         staged = ops.precondition(spec, raw)
-        ready = torch.cuda.Event()
-        ready.record(main)
-        with torch.cuda.stream(side):
-            side.wait_event(ready)
-            if host_raw is not None:
-                raw_h = host_raw[lo:hi]
-            elif i == 0:
-                raw_h = first_raw
-            else:
-                raw_h = torch.empty(hi - lo, dtype=torch.uint8, pin_memory=True)
-                raw_h.copy_(raw, non_blocking=True)
-            if staged is raw:
-                staged_h = raw_h
-            else:
-                staged_h = torch.empty(staged.numel(), dtype=torch.uint8,
-                                       pin_memory=True)
-                staged_h.copy_(staged, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        # ``staged`` stays referenced until ``done``: its device memory must
-        # outlive the side stream's copy
-        return s, count, hi - lo, raw_h, staged_h, staged, done
+        if host_raw is not None:
+            raw_h = host_raw[lo:hi]
+        elif i == 0:
+            raw_h = first_raw
+        else:
+            raw_h = torch.empty(hi - lo, dtype=torch.uint8, pin_memory=True)
+            raw_h.copy_(raw, non_blocking=True)
+        if staged is raw:
+            staged_h = raw_h
+        else:
+            staged_h = torch.empty(staged.numel(), dtype=torch.uint8,
+                                   pin_memory=True)
+            staged_h.copy_(staged, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return s, count, hi - lo, raw_h, staged_h, done
 
     def finish():
-        s, count, orig_len, raw_h, staged_h, _staged, done = pending.popleft()
+        s, count, orig_len, raw_h, staged_h, done = pending.popleft()
         with obs.histogram("ckpt.stage.wait_s").time():   # kernels + D2H
             done.synchronize()
         return s, count, _mv(staged_h), orig_len, _adler(raw_h)
@@ -224,12 +222,20 @@ def _gpu_chunks(xb: torch.Tensor, spans, spec: str, stage_depth: int,
         yield finish()
 
 
+def _branch_cfg(name: str, probe: np.ndarray, profile: str, tuner):
+    """Static policy or measured tuner decision for one branch probe."""
+    if tuner is not None:
+        return tuner.config_for(name, probe)
+    return choose(name, probe, profile)
+
+
 def _tensor_branch(name: str, t: torch.Tensor, profile: str,
-                   stage_depth: int, gather: bool):
+                   stage_depth: int, gather: bool, tuner=None):
     """(dtype_str, shape, chunk_iter, cfg) for one torch tensor.
 
-    The policy probes the first basket's raw bytes (``gather``: the whole
-    tensor's), as the reference's stream (gather) staging does."""
+    The policy (or the tuner) probes the first basket's raw bytes
+    (``gather``: the whole tensor's), as the reference's stream (gather)
+    staging does; bf16 reads as its uint16 bit pattern."""
     if t.dtype not in _NP_DTYPE:
         raise TypeError(f"{name}: dtype {t.dtype} has no container dtype")
     np_dtype = np.dtype(_NP_DTYPE[t.dtype])
@@ -242,7 +248,7 @@ def _tensor_branch(name: str, t: torch.Tensor, profile: str,
         probe = host_raw if gather else _host_copy(xb[lo:hi])
     else:
         probe = xb if gather else xb[lo:hi]
-    cfg = choose(name, probe.numpy().view(np_dtype), profile)
+    cfg = _branch_cfg(name, probe.numpy().view(np_dtype), profile, tuner)
     if xb.is_cuda:
         chunks = _gpu_chunks(xb, spans, cfg.precond, stage_depth,
                              host_raw, probe)
@@ -251,12 +257,38 @@ def _tensor_branch(name: str, t: torch.Tensor, profile: str,
     return np_dtype.str, shape, chunks, cfg
 
 
-def _branch(name: str, val, profile: str, stage_depth: int, gather: bool):
+def _branch(name: str, val, profile: str, stage_depth: int, gather: bool,
+            tuner=None):
     if isinstance(val, torch.Tensor):
-        return _tensor_branch(name, val, profile, stage_depth, gather)
+        return _tensor_branch(name, val, profile, stage_depth, gather, tuner)
     arr = _np_view(val)
     return (arr.dtype.str, arr.shape, split_array(arr, _TARGET_BASKET_BYTES),
-            choose(name, arr, profile))
+            _branch_cfg(name, arr, profile, tuner))
+
+
+def _queued_work(flat: dict) -> dict:
+    """{device: event} marking, on each CUDA device the tree's tensors live
+    on, the work queued on the caller's current stream."""
+    ready = {}
+    for v in flat.values():
+        if isinstance(v, torch.Tensor) and v.is_cuda and v.device not in ready:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(v.device))
+            ready[v.device] = ev
+    return ready
+
+
+@contextlib.contextmanager
+def _own_streams(ready: dict):
+    """A new stream current on every device of ``ready``, each behind the
+    work its event marks: one producer's kernels and copies stay on one
+    stream, apart from the caller's and the other producers'."""
+    with contextlib.ExitStack() as stack:
+        for dev, ev in ready.items():
+            stream = torch.cuda.Stream(dev)
+            stream.wait_event(ev)
+            stack.enter_context(torch.cuda.stream(stream))
+        yield
 
 
 def save_pytree(path: str, tree, profile: str = "checkpoint",
@@ -275,13 +307,24 @@ def save_pytree(path: str, tree, profile: str = "checkpoint",
     in flight; ``"gather"`` copies the whole tensor down first and probes
     all of it.  Both give the reference's basket boundaries.  ``workers>0``
     compresses baskets in parallel (same bytes); ``parity=k`` writes the
-    XOR sidecar."""
+    XOR sidecar.
+
+    ``producers>1`` shards the tensor list across producer threads, each
+    compressing its branches into an in-memory BasketBuffer that one
+    BufferMerger drains into the file without recompression.  The branch
+    order, hence the container's bytes, then depends on thread timing; the
+    contents round-trip the same (restore is keyed by name).
+
+    ``objective=`` (or an explicit ``tuner=``) chooses each branch's codec
+    from trial compressions of the probe (:mod:`repro_torch.tune`) in
+    place of the static ``profile``; the decisions persist in the file's
+    TOC.  A decision whose preconditioner has no kernel (``zigzag``)
+    raises for a tensor."""
     if staging not in ("stream", "gather"):
         raise ValueError(f"staging must be 'stream' or 'gather', got {staging!r}")
-    if producers > 1:
-        raise _not_ported("producers>1", "buffer merger in the port")
-    if tuner is not None or objective is not None:
-        raise _not_ported("tuner=/objective=", "tune in the port")
+    if tuner is None and objective is not None:
+        from ..tune import Tuner
+        tuner = Tuner(objective, fallback_profile=profile)
     flat = {n: v for n, v in _flatten_with_paths(tree).items() if v is not None}
     stats = {"branches": 0, "raw": 0, "comp": 0}
     bf16_paths = [n for n, v in flat.items()
@@ -291,19 +334,82 @@ def save_pytree(path: str, tree, profile: str = "checkpoint",
     if extra_meta:
         meta.update(extra_meta)
     meta_blob = json.dumps(meta).encode()
+    ready = _queued_work(flat)
+
+    def write(sink, name):
+        dtype, shape, chunks, cfg = _branch(
+            name, flat[name], profile, stage_depth, staging == "gather", tuner)
+        with obs.trace.span("ckpt.write_branch", cat="ckpt", branch=name):
+            return sink.write_branch_chunks(name, dtype=dtype, shape=shape,
+                                            chunks=chunks, cfg=cfg)
+
+    def lend_engine(engine):
+        # trial matrices fan out through the write's own engine; a
+        # manager-held tuner must not keep an engine that closes with
+        # this save
+        if tuner is not None and tuner.engine is None and engine is not None:
+            tuner.engine = engine
+            return lambda: setattr(tuner, "engine", None)
+        return lambda: None
 
     t0 = time.perf_counter()
+    if producers <= 1:
+        with obs.trace.span("ckpt.save", cat="ckpt", path=path,
+                            branches=len(flat)), \
+                obs.profile.mem_phase("ckpt.save"), \
+                BasketWriter(path, workers=workers, tuner=tuner,
+                             parity=parity) as w:
+            unlend = lend_engine(w._engine)
+            try:
+                with _own_streams(ready):
+                    for name in flat:
+                        _entry_stats(stats, write(w, name))
+                w.write_blob("__meta__", meta_blob)
+            finally:
+                unlend()
+        obs.histogram("ckpt.save_s").observe(time.perf_counter() - t0)
+        obs.counter("ckpt.saves").inc()
+        return stats
+
+    from ..io.merger import BufferMerger
+    names = list(flat)
+    shards = [names[i::producers] for i in range(producers)]
+    errors: list = []
+    lock = threading.Lock()
     with obs.trace.span("ckpt.save", cat="ckpt", path=path,
                         branches=len(flat)), \
             obs.profile.mem_phase("ckpt.save"), \
-            BasketWriter(path, workers=workers, parity=parity) as w:
-        for name in flat:
-            dtype, shape, chunks, cfg = _branch(
-                name, flat[name], profile, stage_depth, staging == "gather")
-            with obs.trace.span("ckpt.write_branch", cat="ckpt", branch=name):
-                _entry_stats(stats, w.write_branch_chunks(
-                    name, dtype=dtype, shape=shape, chunks=chunks, cfg=cfg))
-        w.write_blob("__meta__", meta_blob)
+            BufferMerger(path, workers=workers, tuner=tuner,
+                         parity=parity) as m:
+        unlend = lend_engine(m._engine)
+
+        def produce(shard):
+            try:
+                with _own_streams(ready):
+                    for name in shard:
+                        buf = m.buffer()
+                        entry = write(buf, name)
+                        m.merge(buf)
+                        with lock:
+                            _entry_stats(stats, entry)
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=produce, args=(s,), daemon=True,
+                                    name=f"ckpt-producer-{i}")
+                   for i, s in enumerate(shards) if s]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            unlend()
+        if errors:
+            raise errors[0]
+        buf = m.buffer()
+        buf.write_blob("__meta__", meta_blob)
+        m.merge(buf)
     obs.histogram("ckpt.save_s").observe(time.perf_counter() - t0)
     obs.counter("ckpt.saves").inc()
     return stats
@@ -390,10 +496,10 @@ def load_pytree(path: str, template=None, shardings=None, workers: int = 4,
     ``heal="auto"``: a basket that fails its checksum is reconstructed from
     the ``<path>.parity`` sidecar, as in the reference."""
     if shardings is not None:
-        raise _not_ported("shardings=", "parallel slice")
+        raise _not_ported("shardings=", "A7, 'elastic restore'")
     if prefetch:
         # the staged restore decodes every basket itself (_read_tensor)
-        raise _not_ported("load_pytree(prefetch>0)", "prefetching restore")
+        raise _not_ported("load_pytree(prefetch>0)", "A9, 'prefetching restore'")
     device = _resolve_device(device)
     t0 = time.perf_counter()
     with obs.trace.span("ckpt.load", cat="ckpt", path=path), \
@@ -457,16 +563,22 @@ class CheckpointManager:
                  profile: str = "checkpoint", workers: int = 0,
                  producers: int = 1, tune: bool = False, objective=None,
                  parity: int = 0):
-        if producers > 1:
-            raise _not_ported("producers>1", "buffer merger in the port")
-        if tune or objective is not None:
-            raise _not_ported("tune=/objective=", "tune in the port")
         self.dir = str(directory)
         os.makedirs(self.dir, exist_ok=True)
         self.keep = keep
         self.profile = profile
         self.workers = workers        # basket-parallel compression width
+        self.producers = producers    # tensor-parallel producer threads (merger)
         self.parity = int(parity)     # XOR parity sidecar stripe width (0 = off)
+        # measured codec selection: one tuner lives as long as the manager,
+        # so step N+1 reuses step N's decisions and the drift detector
+        # spans steps
+        self._tuner = None
+        if tune or objective is not None:
+            from ..tune import OBJECTIVES, Tuner
+            obj = objective if objective is not None else (
+                profile if profile in OBJECTIVES else "checkpoint")
+            self._tuner = Tuner(obj, fallback_profile=profile)
         self._worker: Optional[threading.Thread] = None
         self._last_stats: Optional[dict] = None
         self._error: Optional[BaseException] = None
@@ -494,6 +606,16 @@ class CheckpointManager:
         stream waits for the work already queued on the caller's stream, so
         it reads the state (or its copy) as of this call."""
         self.wait()                                   # one in flight at a time
+        if self._tuner is not None and not self._tuner.decisions:
+            # re-open: seed the tuner from the latest checkpoint's header so
+            # a resumed run does not re-measure what an earlier run decided
+            last = self.latest_step()
+            if last is not None:
+                from ..tune import load_decisions
+                try:
+                    self._tuner.load(load_decisions(self._data_path(last)))
+                except Exception:
+                    pass            # unreadable or malformed header: re-tune
         if snapshot is None:
             snapshot = not wait
         src = _snapshot(tree) if snapshot else tree
@@ -512,7 +634,9 @@ class CheckpointManager:
                 t0 = time.monotonic()
                 stats = save_pytree(self._data_path(step), src,
                                     self.profile, extra_meta,
-                                    workers=self.workers, staging="stream",
+                                    workers=self.workers,
+                                    producers=self.producers,
+                                    staging="stream", tuner=self._tuner,
                                     parity=self.parity)
                 manifest = {"step": step, "time": time.time(),
                             "wall_s": time.monotonic() - t0, **stats}

@@ -20,6 +20,7 @@ Layout::
 from __future__ import annotations
 
 import base64
+import itertools
 import json
 import lzma
 import os
@@ -155,10 +156,6 @@ class BasketWriter:
     def __init__(self, path: str, workers: int = 0, engine=None,
                  tuner=None, objective=None, journal: bool = False,
                  parity: int = 0):
-        if tuner is not None or objective is not None:
-            raise NotImplementedError(
-                "measured codec selection (tuner=/objective=) is not ported "
-                "yet: ROADMAP.md queue A, 'tune in the port'")
         self.path = str(path)
         self._tmp = self.path + ".tmp"
         os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
@@ -200,12 +197,25 @@ class BasketWriter:
             from repro_torch.io.engine import CompressionEngine
             self._engine = CompressionEngine(workers)
             self._owns_engine = True
+        # adaptive codec selection (repro_torch.tune): branches written without
+        # an explicit cfg are tuned per-branch; decisions persist in the
+        # TOC so re-opens/appends reuse them without re-measurement
+        if tuner is None and objective is not None:
+            from repro_torch.tune import Tuner
+            tuner = Tuner(objective, engine=self._engine)
+        self._tuner = tuner
 
     def write_branch(self, name: str, arr: np.ndarray,
                      cfg: Optional[CompressionConfig] = None,
                      target_basket_bytes: int = 1 << 20) -> dict:
-        """Serialize an array column-wise into compressed baskets."""
+        """Serialize an array column-wise into compressed baskets.
+
+        With a tuner attached and no explicit ``cfg``, the config is the
+        tuner's per-branch decision, measured here on stratified windows
+        of the *whole* array (cached decisions are reused)."""
         arr = np.asarray(arr)
+        if cfg is None and self._tuner is not None:
+            cfg = self._tuner.config_for(name, arr)
         return self.write_branch_chunks(
             name, dtype=arr.dtype.str, shape=arr.shape,
             chunks=split_array(arr, target_basket_bytes), cfg=cfg)
@@ -219,6 +229,15 @@ class BasketWriter:
         the boundaries of :func:`repro_torch.core.basket.basket_rows`."""
         if name in self._branches:
             raise ValueError(f"branch {name!r} already written")
+        if cfg is None and self._tuner is not None:
+            # streaming path: the tuner probes the first chunk (the only
+            # data available without materializing the branch)
+            it = iter(chunks)
+            first = next(it, None)
+            if first is not None:
+                cfg = self._tuner.config_for(
+                    name, first[2], dtype=np.dtype(dtype))
+                chunks = itertools.chain([first], it)
         cfg = cfg or CompressionConfig()
         engine = self._engine
         if engine is None:
@@ -237,6 +256,8 @@ class BasketWriter:
             for _start, _count, payload, meta in packed:
                 off = self._f.tell()
                 self._f.write(payload)  # accepts memoryview payloads zero-copy
+                if self._tuner is not None:
+                    self._tuner.observe(name, meta)     # drift-detector feed
                 if self._parity is not None:
                     self._parity.add(name, len(entry["baskets"]), payload)
                 entry["baskets"].append({"offset": off, "meta": meta.to_json()})
@@ -306,6 +327,14 @@ class BasketWriter:
                 f"container write to {self.path!r} failed mid-stream; "
                 f"aborted without committing: {err!r}") from err
         doc = {"branches": self._branches}
+        if self._tuner is not None:
+            # persist this file's tuning decisions in the header so appends
+            # and re-opens (Tuner.from_file / load_decisions) reuse them
+            # without re-measurement; decisions for branches not written
+            # here are not this file's to record
+            tuned = self._tuner.decisions_json(names=self._branches)
+            if tuned:
+                doc["tuning"] = tuned
         try:
             toc = json.dumps(doc).encode()
             self._f.write(toc)

@@ -47,13 +47,16 @@ def write_token_shards(paths: list[str], *, vocab: int, tokens_per_shard: int,
     Real deployments swap the generator for a tokenized corpus; the
     container/codec path is identical.
 
-    ``tune=True``, ``objective=`` and ``tuner=`` (the reference's
-    measurement-driven selection) need ``tune``, which is not ported yet:
-    they raise ``NotImplementedError`` (ROADMAP A9)."""
-    if tune or objective is not None or tuner is not None:
-        raise NotImplementedError(
-            "measured codec selection (tune=/objective=/tuner=) is not "
-            "ported yet: ROADMAP.md A9, 'tune in the port'")
+    ``tune=True`` (or an ``objective=`` / explicit ``tuner=``) replaces the
+    static profile with measurement-driven selection (repro_torch.tune):
+    the first shard runs the trial matrix on its sampled tokens, and every
+    later shard reuses that cached decision — the tuner is shared across
+    shards, so tuning cost is paid once per corpus, and each shard's
+    header carries the decision for re-opens."""
+    if tuner is None and (tune or objective is not None):
+        from repro_torch.tune import Tuner
+        tuner = Tuner(objective if objective is not None else "max_read_tput",
+                      fallback_profile=profile)
     for i, path in enumerate(paths):
         rng = np.random.default_rng(seed + 1000 * i)
         # Zipf-distributed ids compress like natural text-token streams

@@ -8,8 +8,10 @@ with 0.  Every arch builds.  The dense attention archs (qwen3-8b, the
 default), paligemma-3b without its image prefix, rwkv6-1.6b, llama4 and
 jamba serve.  seamless-m4t-medium prints the reference's note and then
 fails as the reference does: the engine passes no ``frames``, so its
-prefill raises ``KeyError: 'frames'``.  ``--ckpt-dir`` exits with an
-error, as in the reference.  The int8 compressed tensor-parallel
+prefill raises ``KeyError: 'frames'``.  ``--ckpt-dir`` restores the latest
+checkpoint there onto the device and then exits, as the reference does: a
+directory without one raises ``FileNotFoundError``, a corrupt one the
+checksum error; checkpoint serving lives in ``examples/serve_lm_torch.py``.  The int8 compressed tensor-parallel
 reduction (RWKV only) is switched on as in the reference:
 ``models.rwkv.PERF_FLAGS["compressed_tp"]`` plus an active
 ``parallel.activation_context``.
@@ -27,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..checkpoint.manager import _resolve_device
 from ..configs import get_config, list_archs, reduced
 from ..models import Model
@@ -59,10 +62,11 @@ def build(args, cfg=None):
         print(f"note: {cfg.name} serving uses the LM decoder path with "
               "stub modality inputs omitted")
     model = Model(cfg)
-    if args.ckpt_dir:
-        raise SystemExit("checkpoint serving is wired only in the reference "
-                         "(examples/serve_lm.py)")
     device = _resolve_device(args.device)
+    if args.ckpt_dir:
+        CheckpointManager(args.ckpt_dir).restore(device=device)
+        raise SystemExit("checkpoint serving wired via "
+                         "examples/serve_lm_torch.py")
     gen = torch.Generator(device=device).manual_seed(0)
     return cfg, model, model.init(gen, dtype=torch.bfloat16)
 

@@ -210,12 +210,6 @@ def test_parity_heals_a_rotted_basket(tmp_path, rng):
 def test_unported_options_raise(tmp_path):
     tree = {"x": torch.arange(4)}
     p = str(tmp_path / "c.bskt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        save_pytree(p, tree, producers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        save_pytree(p, tree, objective="checkpoint")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CheckpointManager(str(tmp_path), tune=True)
     save_pytree(p, tree)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9, 'prefetching restore'"):
         load_pytree(p, device="cpu", prefetch=2)

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports ``jax`` or the JAX package ``repro``, and the package imports with
-both blocked.  Its storage layer does not load ``torch`` either, so the I/O
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
+or the port's examples) imports ``jax`` or the JAX package ``repro``, and
+the package imports with both blocked.  Its storage layer does not load ``torch`` either, so the I/O
 engine's process-pool workers stay light."""
 
 import ast
@@ -40,6 +40,7 @@ import repro_torch.configs, repro_torch.models, repro_torch.parallel
 import repro_torch.models.moe, repro_torch.models.ssm
 import repro_torch.serve, repro_torch.launch.serve
 import repro_torch.train, repro_torch.launch.train
+import repro_torch.io.merger, repro_torch.tune
 repro_torch.configs.get_config("rwkv6-1.6b")
 assert not any(m.split(".")[0] in {blocked!r} for m in sys.modules), \\
     sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
@@ -53,6 +54,7 @@ import sys
 import repro_torch, repro_torch.core, repro_torch.io.engine, repro_torch.obs
 import repro_torch.io, repro_torch.io.prefetch
 import repro_torch.data, repro_torch.data.pipeline
+import repro_torch.io.merger, repro_torch.tune
 assert "torch" not in sys.modules
 """)
     assert r.returncode == 0, r.stderr
@@ -69,7 +71,8 @@ def _imported_modules(path: Path):
 
 
 def _port_files():
-    return sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((SRC / "repro_torch").rglob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

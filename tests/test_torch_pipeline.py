@@ -122,11 +122,7 @@ def test_reads_a_reference_written_file_with_prefetch(tmp_path):
         assert np.array_equal(f.read_branch("x"), v)
 
 
-def test_unported_options_raise(shards, tmp_path):
-    p = [str(tmp_path / "t.bskt")]
-    for kw in ({"tune": True}, {"objective": "max_read_tput"}, {"tuner": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-            write_token_shards(p, vocab=VOCAB, tokens_per_shard=100, **kw)
+def test_unported_options_raise():
     pipe = TokenPipeline(["repro://localhost:1/x.bskt"], batch=BATCH, seq_len=SEQ)
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):

@@ -28,6 +28,7 @@ import torch.distributed as dist  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.checkpoint import save_pytree as jax_save  # noqa: E402
+from repro.core.basket import ChecksumError as JaxChecksumError  # noqa: E402
 from repro.configs import paper_io as jpaper_io  # noqa: E402
 from repro.launch import serve as jax_launch_serve  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
@@ -37,7 +38,10 @@ from repro.models.specs import tree_paths as jax_tree_paths  # noqa: E402
 from repro.parallel.actctx import activation_context as jax_context  # noqa: E402
 from repro.serve import ServeEngine as JaxEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.checkpoint import load_pytree, tree_from_numpy  # noqa: E402
+from repro_torch.checkpoint import (CheckpointManager, load_pytree,  # noqa: E402
+                                    tree_from_numpy)
+from repro_torch.core.basket import ChecksumError  # noqa: E402
+from repro_torch.core.bfile import BasketFile  # noqa: E402
 from repro_torch.configs import paper_io  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import Model, rwkv  # noqa: E402
@@ -302,10 +306,39 @@ def test_launch_serve_dense_on_the_cpu(arch, capsys):
     assert capsys.readouterr().out.startswith("3 requests, 12 tokens in ")
 
 
-def test_launch_serve_refuses(monkeypatch, capsys):
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                           "--ckpt-dir", "ckpt"])
+def _corrupt_first_basket(path: str) -> None:
+    with BasketFile(path) as f:
+        b = f.branches["w"]["baskets"][0]
+    with open(path, "r+b") as fh:             # bytes inside the payload
+        fh.seek(b["offset"] + 16)
+        fh.write(b"\xff" * 16)
+
+
+def test_launch_serve_refuses(monkeypatch, capsys, tmp_path):
+    """``--ckpt-dir`` restores first in both drivers: a directory without a
+    checkpoint raises FileNotFoundError, a corrupt one the same checksum
+    error, and a valid one restores, then exits."""
+    monkeypatch.chdir(tmp_path)
+    drivers = (lambda a: jax_launch_serve.main(["--arch", ARCH, "--reduced"] + a),
+               lambda a: launch_serve.main(["--arch", ARCH, "--reduced",
+                                            "--device", "cpu"] + a))
+    for main in drivers:
+        with pytest.raises(FileNotFoundError, match="no checkpoints in ckpt"):
+            main(["--ckpt-dir", "ckpt"])
+    tree = {"w": torch.arange(40_000, dtype=torch.float32)}
+    # stored without a codec: the flipped bytes decode and fail the checksum
+    CheckpointManager("bad", profile="off").save(1, tree, wait=True)
+    _corrupt_first_basket(str(tmp_path / "bad" / "ckpt-00000001.bskt"))
+    messages = []
+    for main, error in zip(drivers, (JaxChecksumError, ChecksumError)):
+        with pytest.raises(error, match="corrupt beyond healing") as e:
+            main(["--ckpt-dir", "bad"])
+        messages.append(str(e.value))
+    assert messages[0] == messages[1]
+    CheckpointManager("good").save(1, tree, wait=True)
+    for main in drivers:
+        with pytest.raises(SystemExit, match="checkpoint serving wired via"):
+            main(["--ckpt-dir", "good"])
     # the encoder-decoder arch: both drivers print their note, then the
     # engine's prefill finds no frames, in the reference as in the port
     argv = ["--arch", "seamless-m4t-medium", "--reduced", "--requests", "2"]
