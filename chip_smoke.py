@@ -46,7 +46,13 @@ runs, failing on the first error:
    profiled step beside the step's bound; the checkpoint restored through
    ``CheckpointManager`` bitwise against the live state, then the depth-1
    model on the restored weights cast to bf16 (a prefill of 2 x 64 tokens
-   and 3 decode steps), its logits bit-equal to the live weights'; then,
+   and 3 decode steps), its logits bit-equal to the live weights'; one
+   more step under ``FlopCounterMode``; then, as phase 4c with its own
+   seconds, the same checkpoint restored through
+   ``CheckpointManager.restore(shardings=...)`` onto ``make_host_mesh()``
+   ((1, 1) on cuda:0, NCCL) with the placements of ``param_shardings`` and
+   ``opt_shardings``: every leaf a DTensor bitwise equal to the live
+   state, its wall beside phase 4's restore; then,
    as phase 4b with its own seconds, the same live state saved again by
    ``CheckpointManager(producers=4, tune=True)`` (the buffer merger and the
    codec tuner under the reference's ``checkpoint`` objective), restored
@@ -87,17 +93,28 @@ runs, failing on the first error:
    seamless-m4t-medium whole in float32, its prefill and decode against
    the teacher-forced forward (1e-4) and its bf16 cross cache against the
    encoder's projections; the reduced llama4-scout, jamba and seamless on
-   the card against the port on the CPU in float32 (1e-4).
+   the card against the port on the CPU in float32 (1e-4);
+10. the port's dry run: ``python -m repro_torch.launch.dryrun --arch
+   qwen3-8b --shape all --mesh both`` in a child process (a fake world of
+   256 or 512 ranks, no GPU), all six cells OK (an op DTensor cannot lay
+   out fails its cell: the dry run has no fallback), each one's per-device
+   peak, roofline terms, mfu_vs_roofline and collectives printed; then phase 4's own cell
+   (depth 1, 8 x 128, compressed gradients) on a (1, 1) fake world in
+   another child, its argument bytes equal to the live state's and the
+   batch's and its dot FLOPs equal to phase 4's FlopCounterMode count, its
+   peak and roofline beside phase 4's measured peak and step; the card's
+   bf16 GEMM and copy rates beside the data sheet's.
 
 Launch counters are zeroed just before phase 3 and read after it (the
 event tree's save and restore), zeroed again just before phase 4's
 trainer and read after its save and after its restore (the main path),
-and before and after phase 4b's tuned save and its restore,
+around phase 4c's elastic restore, and before and after phase 4b's tuned
+save and its restore,
 zeroed before phase 5's serve run and read after it (the rwkv6 serve
 path), and again around the timed runs of phases 6, 7 and 8 (the dense,
 hybrid and MoE serve paths, which launch none of the port's kernels).  A kernel's ``launches`` in the
-JSON record is the sum over phases 3, 4 and 4b (the checkpoint kernels)
-or phase 5 (qpack, qunpack).  Each phase prints its seconds.  At the end
+JSON record is the sum over phases 3, 4, 4c and 4b (the checkpoint
+kernels) or phase 5 (qpack, qunpack).  Each phase prints its seconds.  At the end
 the script stops multiprocessing's forkserver and resource tracker and
 lists its descendants from ``/proc``: if any is still alive after 10 s it
 prints them and exits 1 with no result.  The second-to-last line is the
@@ -1568,7 +1585,8 @@ def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
     ``repro_torch.launch.train`` with compressed gradients; its step-4
     checkpoint restored through CheckpointManager bitwise against the live
     state; the depth-1 model on the restored weights bit-equal to the live
-    weights'; one profiled step."""
+    weights'; one profiled step, and one under ``FlopCounterMode``.  The
+    checkpoint stays in ``workdir`` for phase 4c."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import _flatten_with_paths
     from repro_torch.launch import train as launch
@@ -1624,6 +1642,13 @@ def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
     log(f"phase 4: one profiled step: {prof}")
     prof["phases_ms"] = _step_phases(torch, model, run.state, batch)
     log(f"phase 4: the step's parts, device ms between events: {prof['phases_ms']}")
+    # the dot FLOPs of one real step, for phase 10's (1, 1) cell
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as flops:
+        new, _ = step_fn(run.state, batch)
+    del new
+    step_flops = flops.get_total_flops()
+    batch_bytes = sum(t.numel() * t.element_size() for t in batch.values())
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     restored, meta = CheckpointManager(os.path.join(args.workdir, "ckpt")).restore(
@@ -1659,8 +1684,9 @@ def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
     step_ms_all = [x * 1e3 for x in run.step_seconds]
     live = run.state
     del restored, back, run, tree, flat
-    shutil.rmtree(args.workdir)
-    return {"gb": nbytes / 1e9, "n_params": n_params, "losses": losses,
+    return {"gb": nbytes / 1e9, "nbytes": nbytes, "batch_bytes": batch_bytes,
+            "step_flops": step_flops, "workdir": args.workdir,
+            "n_params": n_params, "losses": losses,
             "step_ms": step_ms, "step_ms_all": step_ms_all,
             "tok_per_s": tokens / step_ms * 1e3, "bound": bound,
             "peak_gb": peak_gb, "profile": prof, "save_s": save_s,
@@ -1668,6 +1694,60 @@ def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
             "save_stages_s": save_stages, "restore_stages_s": restore_stages,
             "save_launches": save_counts, "restore_launches": restore_counts}, \
         counts, live
+
+
+def phase_elastic_restore(torch, ops, cfg, live, static, device="cuda"):
+    """Phase 4's checkpoint restored through ``CheckpointManager.restore(
+    shardings=...)`` onto ``make_host_mesh()`` ((1, 1) on cuda:0) with the
+    placements of ``param_shardings`` and ``opt_shardings`` under
+    ``parallelism_for(cfg)``: every leaf a DTensor on that mesh, bitwise
+    equal to the live state.  ``static`` holds phase 4's plain restore.
+    Returns (summary, launch counts of the restore)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import parallelism_for
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import (NamedSharding, P, opt_shardings,
+                                               param_shardings)
+    mesh = make_host_mesh(device=device)
+    model, pcfg = Model(cfg), parallelism_for(cfg)
+    psh, osh = param_shardings(model, mesh, pcfg), opt_shardings(model, mesh, pcfg)
+    rep = NamedSharding(mesh, P())
+    shardings = {"params": psh, "opt": {"m": osh, "v": osh, "count": rep},
+                 "step": rep, "err": psh}
+    tree = {"params": live.params, "opt": live.opt, "step": live.step, "err": live.err}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, _ = CheckpointManager(os.path.join(static["workdir"], "ckpt")).restore(
+        template=tree, shardings=shardings, device=device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want, got = _flatten_with_paths(tree), _flatten_with_paths(restored)
+    flat_sh = _flatten_with_paths(shardings)
+    assert sorted(got) == sorted(want)
+    for k, t in want.items():
+        if t is None:
+            continue
+        d = got[k]
+        assert isinstance(d, DTensor) and d.device_mesh == mesh, k
+        assert list(d.placements) == flat_sh[k].placements, k
+        assert same_bits(d.to_local(), t), k
+    for name in ("bitunshuffle", "byteunshuffle"):
+        assert counts[name] > 0, f"{name} not launched on the elastic restore"
+    n_leaves = sum(t is not None for t in want.values())
+    log(f"phase 4c: elastic restore onto {mesh} ({n_leaves} leaves, every one a "
+        f"DTensor on the rules' placements, bitwise equal to the live state): "
+        f"{wall_s:.3f} s against phase 4's plain restore {static['restore_s']:.3f} s "
+        f"in this call; launches: bitunshuffle {counts['bitunshuffle']}, "
+        f"byteunshuffle {counts['byteunshuffle']}")
+    del restored, got
+    shutil.rmtree(static["workdir"])
+    return {"wall_s": wall_s, "plain_restore_s": static["restore_s"],
+            "leaves": n_leaves, "mesh": str(mesh), "launches": counts}, counts
 
 
 def run_example(name: str, argv: list) -> int:
@@ -1780,29 +1860,42 @@ def phase_tuned_save(torch, np, tmp, ops, cfg, state, static, device="cuda"):
             "static": {k: static[k] for k in ("save_s", "restore_s", "ratio")}}, counts
 
 
-def _drive_trainer(workdir, extra):
-    """``python -m repro_torch.launch.train`` in a child process, on the
-    card unless ``extra`` names another device.  The child leads a session
-    of its own: on a timeout or an error its whole process group is killed
-    and waited for; after a normal exit nothing of the group may be left
-    (checked, not killed)."""
+def _start_child(cmd):
+    """``cmd`` started in a child process that leads a session of its own."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "repro_torch.launch.train",
-           "--workdir", workdir] + DRILL_ARGS + extra
     child = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True, env=env, cwd=ROOT, start_new_session=True)
+    return child, cmd, time.perf_counter()
+
+
+def _finish_child(started, timeout: float):
+    """Wait for a ``_start_child``: on a timeout or an error its whole
+    process group is killed and waited for; after a normal exit nothing of
+    the group may be left (checked, not killed).  Returns
+    (CompletedProcess, wall s)."""
+    child, cmd, t0 = started
     try:
-        out, err = child.communicate(timeout=300)
+        out, err = child.communicate(timeout=timeout)
     except BaseException:
         os.killpg(child.pid, signal.SIGKILL)
         child.communicate()
         raise
     left = _live_processes(lambda table: {pid for pid, st in table.items()
                                           if st["pgrp"] == child.pid})
-    assert not left, f"the trainer's process group outlived it: {left}"
-    r = subprocess.CompletedProcess(cmd, child.returncode, out, err)
-    return r, time.perf_counter() - t0
+    assert not left, f"the child's process group outlived it: {cmd[:3]}: {left}"
+    return subprocess.CompletedProcess(cmd, child.returncode, out, err), \
+        time.perf_counter() - t0
+
+
+def _run_child(cmd, timeout: float):
+    return _finish_child(_start_child(cmd), timeout)
+
+
+def _drive_trainer(workdir, extra):
+    """``python -m repro_torch.launch.train`` in a child process, on the
+    card unless ``extra`` names another device (``_run_child``)."""
+    return _run_child([sys.executable, "-m", "repro_torch.launch.train",
+                       "--workdir", workdir] + DRILL_ARGS + extra, timeout=300)
 
 
 def phase_drill(torch, tmp, device="cuda"):
@@ -2573,6 +2666,105 @@ def phase_family_checks(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the port's dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARGS = ["--arch", "qwen3-8b", "--shape", "all", "--mesh", "both"]
+DRYRUN_CELLS = 6                   # 3 shapes x the (16, 16) and (2, 16, 16) meshes
+# the trainer's own cell: phase 4's configuration on a (1, 1) fake world
+TRAINER_CELL = """
+import dataclasses, json
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=1)
+rec = dryrun.run_shape(cfg, ShapeSpec("train_128", 128, 8, "train"), (1, 1),
+                       train_kwargs={"compress_grads": True, "accum": 1})
+print("RECORD " + json.dumps(rec))
+"""
+
+
+def card_rates(torch) -> dict:
+    """The card's bf16 GEMM rate (8192^3) and device-to-device copy rate
+    (1 GiB read and written), by events: beside the data sheet's figures
+    the dry run's roofline divides by."""
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    gemm_ms = cuda_ms(lambda: a @ b, 20, rounds=3)
+    x = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    y = torch.empty_like(x)
+    copy_ms = cuda_ms(lambda: y.copy_(x), 20, rounds=3)
+    del a, b, x, y
+    torch.cuda.empty_cache()
+    return {"bf16_gemm_tflop_s": 2 * 8192 ** 3 / gemm_ms / 1e9,
+            "copy_gb_s": 2 * (1 << 30) / copy_ms / 1e6}
+
+
+def phase_dryrun(torch, tmp, train):
+    """``python -m repro_torch.launch.dryrun`` over qwen3-8b's three shapes
+    on both production meshes in a child process (``_run_child``; a fake
+    world of 256 or 512 ranks is that process's default group): all six
+    cells OK, each one's per-device peak, roofline terms and
+    mfu_vs_roofline printed; then the trainer's own cell on a (1, 1) fake
+    world, held to phase 4's real step: its argument bytes equal to the
+    live state's and the batch's, its dot FLOPs equal to FlopCounterMode's
+    over one real step; its peak and roofline printed beside phase 4's
+    measured peak and step."""
+    from repro_torch.launch.dryrun import H100
+    out_dir = os.path.join(tmp, "dryrun")
+    # both children at once: neither needs the card, and each is one process
+    cell = _start_child([sys.executable, "-c", TRAINER_CELL])
+    try:
+        r, wall = _run_child([sys.executable, "-m", "repro_torch.launch.dryrun"]
+                             + DRYRUN_ARGS + ["--out", out_dir], timeout=600)
+    finally:
+        r2, wall2 = _finish_child(cell, timeout=300)
+    assert r.returncode == 0, (r.returncode, r.stdout[-3000:], r.stderr[-3000:])
+    oks = [line for line in r.stdout.splitlines() if line.startswith("OK ")]
+    assert len(oks) == DRYRUN_CELLS and "all dry-run cells passed" in r.stdout, \
+        r.stdout[-3000:]
+    cells = {}
+    for fn in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, fn)) as fh:
+            rec = json.load(fh)
+        t = {k: v * 1e3 for k, v in rec["roofline_s"].items()}
+        peak_gib = rec["per_device"]["peak_bytes"] / 2 ** 30
+        cells[f"{rec['shape']} {rec['mesh']}"] = {
+            "peak_gib": peak_gib, "roofline_ms": t,
+            "bottleneck": rec["bottleneck"], "mfu_vs_roofline": rec["mfu_vs_roofline"],
+            "per_device": rec["per_device"], "collectives": rec["collectives"]["total"],
+            "trace_s": rec["lower_s"]}
+        log(f"phase 10: {rec['arch']} {rec['shape']} {rec['mesh']}: peak "
+            f"{peak_gib:.2f} GiB a device; roofline compute {t['compute']:.2f} ms, "
+            f"memory {t['memory']:.2f} ms, collective {t['collective']:.2f} ms -> "
+            f"{rec['bottleneck']}; mfu_vs_roofline {rec['mfu_vs_roofline']:.4f}; "
+            f"{rec['collectives']['total']['count']:.0f} collectives")
+    assert len(cells) == DRYRUN_CELLS, sorted(cells)
+    assert r2.returncode == 0, (r2.returncode, r2.stderr[-3000:])
+    rec = json.loads(next(line for line in r2.stdout.splitlines()
+                          if line.startswith("RECORD "))[len("RECORD "):])
+    pd, t = rec["per_device"], {k: v * 1e3 for k, v in rec["roofline_s"].items()}
+    want_args = train["nbytes"] + train["batch_bytes"]
+    assert pd["arg_bytes"] == want_args, (pd["arg_bytes"], want_args)
+    assert pd["dot_flops"] == train["step_flops"], (pd["dot_flops"], train["step_flops"])
+    rates = card_rates(torch)
+    log(f"phase 10: the trainer's cell (qwen3-8b depth 1, 8 x 128, compressed "
+        f"gradients, (1, 1)): argument bytes {pd['arg_bytes']} = the live state's "
+        f"and the batch's; dot FLOPs {pd['dot_flops']:.6e} = FlopCounterMode's over "
+        f"phase 4's real step; peak {pd['peak_bytes'] / 1e9:.2f} GB against phase 4's "
+        f"measured {train['peak_gb']:.2f} GB; roofline compute {t['compute']:.2f} ms, "
+        f"memory {t['memory']:.2f} ms -> {rec['bottleneck']}, against the measured "
+        f"step {train['step_ms']:.1f} ms")
+    log(f"phase 10: the card's bf16 GEMM {rates['bf16_gemm_tflop_s']:.1f} TFLOP/s and "
+        f"copy {rates['copy_gb_s']:.1f} GB/s (events) against the data sheet's "
+        f"{H100['flops_bf16'] / 1e12:.1f} TFLOP/s and {H100['hbm_bytes_per_s'] / 1e9:.0f} "
+        f"GB/s the dry run divides by; dry run {wall:.1f} s, trainer's cell {wall2:.1f} s")
+    return {"cells": cells, "trainer_cell": {
+        "per_device": pd, "roofline_ms": t, "bottleneck": rec["bottleneck"],
+        "measured_step_ms": train["step_ms"], "measured_peak_gb": train["peak_gb"]},
+        "card_rates": rates, "dryrun_s": wall, "trainer_cell_s": wall2}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2639,6 +2831,11 @@ def main() -> int:
         cfg4 = qwen3_8b_depth1_specs()[0]
         train, train_counts, live = phase_train(torch, np, tmp, ops, cfg4)
         log(f"launches on the trainer's save and restore: {train_counts}")
+        t4c = time.perf_counter()
+        elastic, elastic_counts = phase_elastic_restore(torch, ops, cfg4, live, train)
+        phase_s["phase 4c"] = time.perf_counter() - t4c
+        mark[0] += phase_s["phase 4c"]         # phase 4's seconds leave 4c out
+        log(f"phase 4c: {phase_s['phase 4c']:.1f} s")
         t4b = time.perf_counter()
         tuned, tuned_counts = phase_tuned_save(torch, np, tmp, ops, cfg4, live, train)
         del live
@@ -2653,7 +2850,8 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     # the restore undoes every delta of the save: one undelta a basket
     assert counts["undelta"] == counts["delta"] > 0, counts
-    counts = {k: counts[k] + train_counts[k] + tuned_counts[k] for k in counts}
+    counts = {k: counts[k] + train_counts[k] + elastic_counts[k] + tuned_counts[k]
+              for k in counts}
     for name in ops.PRECOND_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the checkpoint path"
     import torch.distributed as dist
@@ -2677,14 +2875,21 @@ def main() -> int:
         done(phase)
     checks = phase_family_checks(torch)
     done("phase 9")
+    dtmp = tempfile.mkdtemp(prefix="chip_smoke-dryrun-")
+    try:
+        dryrun = phase_dryrun(torch, dtmp, train)
+    finally:
+        shutil.rmtree(dtmp, ignore_errors=True)
+    done("phase 10")
     for row in rows:
         row["launches"] = counts[row["name"]]
     log(json.dumps({"phase3_events": events, "phase4_train_qwen3_8b_depth1": train,
-                    "phase4b_tuned_save": tuned, "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
+                    "phase4b_tuned_save": tuned, "phase4c_elastic_restore": elastic,
+                    "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
                     "phase6_serve_qwen3_8b": dense,
                     "phase7_serve_jamba_v0_1_52b_1_group": families["jamba-v0.1-52b"],
                     "phase8_serve_llama4_scout_depth4": families["llama4-scout-17b-a16e"],
-                    "phase9_checks": checks, "phase_s": phase_s,
+                    "phase9_checks": checks, "phase10_dryrun": dryrun, "phase_s": phase_s,
                     "card": smi, "wall_s": time.perf_counter() - t_start}))
     stop_multiprocessing_helpers()
     left = live_descendants(wait_s=10.0)

@@ -29,8 +29,16 @@ the manifest), resumable ``latest_step``, retention, parity sidecars and
 :class:`~repro_torch.io.merger.BasketBuffer` s drained by one
 :class:`~repro_torch.io.merger.BufferMerger`; ``tuner=``/``objective=``/
 ``tune=`` choose each branch's codec by measurement (:mod:`repro_torch.tune`)
-from the same probe the static policy reads.  Not ported yet (ROADMAP.md
-A9 and A7): ``load_pytree(prefetch>0)`` and ``shardings=``.
+from the same probe the static policy reads.
+
+DTensors: a DTensor leaf is saved whole, gathered first as the reference
+gathers a sharded array to the host (a collective: every rank of its mesh
+calls the save with the same tree), so the container bytes do not depend
+on the layout.  ``load_pytree(shardings=)`` is the elastic restore: each
+branch decodes whole on the load's device, as any branch does (a mesh of
+another device type raises), and each rank keeps its own shard of it as a DTensor (no collective), the
+whole tensor dropped as the branch is done.  Not ported yet (ROADMAP.md
+A9): ``load_pytree(prefetch>0)``.
 """
 
 from __future__ import annotations
@@ -157,6 +165,13 @@ def _basket_spans(shape: tuple, itemsize: int) -> list[tuple[int, int, int, int]
     spans = [(s, min(s + rows_per, n) - s, s * row_bytes,
               min(s + rows_per, n) * row_bytes) for s in range(0, n, rows_per)]
     return spans or [(0, 0, 0, 0)]          # an empty tensor is one empty basket
+
+
+def _whole(v):
+    """A DTensor gathered whole on every rank of its mesh; other leaves as
+    they are."""
+    from torch.distributed.tensor import DTensor
+    return v.full_tensor() if isinstance(v, DTensor) else v
 
 
 def _host_copy(dev: torch.Tensor) -> torch.Tensor:
@@ -325,7 +340,8 @@ def save_pytree(path: str, tree, profile: str = "checkpoint",
     if tuner is None and objective is not None:
         from ..tune import Tuner
         tuner = Tuner(objective, fallback_profile=profile)
-    flat = {n: v for n, v in _flatten_with_paths(tree).items() if v is not None}
+    flat = {n: _whole(v) for n, v in _flatten_with_paths(tree).items()
+            if v is not None}
     stats = {"branches": 0, "raw": 0, "comp": 0}
     bf16_paths = [n for n, v in flat.items()
                   if (v.dtype == torch.bfloat16 if isinstance(v, torch.Tensor)
@@ -493,14 +509,27 @@ def load_pytree(path: str, template=None, shardings=None, workers: int = 4,
     GPU; raises when there is none).  Returns ``(tree, meta)``; without
     ``template`` the tree is a flat ``{dotted.path: tensor}`` dict.
 
+    ``shardings``: a matching tree of
+    :class:`~repro_torch.parallel.sharding.NamedSharding` (the elastic
+    re-shard): each mesh must be on ``device``'s type (raises otherwise);
+    a branch with a sharding decodes on ``device`` as any branch does (the
+    CUDA kernels for a CUDA device) and becomes a DTensor holding this
+    rank's shard; the whole tensor is dropped before the next branch
+    decodes.
+
     ``heal="auto"``: a basket that fails its checksum is reconstructed from
     the ``<path>.parity`` sidecar, as in the reference."""
-    if shardings is not None:
-        raise _not_ported("shardings=", "A7, 'elastic restore'")
     if prefetch:
         # the staged restore decodes every basket itself (_read_tensor)
         raise _not_ported("load_pytree(prefetch>0)", "A9, 'prefetching restore'")
     device = _resolve_device(device)
+    flat_s = _flatten_with_paths(shardings) if shardings is not None else {}
+    for name, sh in flat_s.items():
+        if sh is not None and sh.mesh.device_type != device.type:
+            raise ValueError(f"load_pytree: {name}'s sharding is on a "
+                             f"{sh.mesh.device_type} mesh, not on {device}")
+    if shardings is not None:
+        from ..parallel.sharding import shard_tensor
     t0 = time.perf_counter()
     with obs.trace.span("ckpt.load", cat="ckpt", path=path), \
             obs.profile.mem_phase("ckpt.load"), \
@@ -512,9 +541,11 @@ def load_pytree(path: str, template=None, shardings=None, workers: int = 4,
         for name in f.branch_names():
             if name == "__meta__":
                 continue
+            sh = flat_s.get(name)
             with obs.trace.span("ckpt.read_branch", cat="ckpt", branch=name):
-                flat[name] = _read_tensor(f, name, name in bf16, device,
-                                          workers)
+                t = _read_tensor(f, name, name in bf16, device, workers)
+                flat[name] = t if sh is None else shard_tensor(t, sh)
+                del t
     obs.histogram("ckpt.load_s").observe(time.perf_counter() - t0)
     obs.counter("ckpt.loads").inc()
     if template is None:
@@ -548,10 +579,11 @@ def tree_from_numpy(tree, device=None, bf16: Iterable[str] = ()):
 # ---------------------------------------------------------------------------
 
 def _snapshot(tree):
-    """A copy of every leaf on its own device, made on the current stream."""
+    """A copy of every leaf on its own device, made on the current stream
+    (a DTensor's whole, gathered)."""
     def copy(v):
         if isinstance(v, torch.Tensor):
-            return v.detach().clone()
+            return _whole(v.detach()).clone()
         return None if v is None else np.array(v, copy=True)
 
     flat = {n: copy(v) for n, v in _flatten_with_paths(tree).items()}
@@ -618,7 +650,10 @@ class CheckpointManager:
                     pass            # unreadable or malformed header: re-tune
         if snapshot is None:
             snapshot = not wait
-        src = _snapshot(tree) if snapshot else tree
+        # DTensors are gathered here, on the caller's thread: the gather is
+        # a collective, and the save thread runs none
+        src = _snapshot(tree) if snapshot else _rebuild(tree, {
+            n: _whole(v) for n, v in _flatten_with_paths(tree).items()})
         ready = {}
         for v in _flatten_with_paths(src).values():
             if isinstance(v, torch.Tensor) and v.is_cuda \

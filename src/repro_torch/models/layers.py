@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.actctx import constrain
+from ..parallel.actctx import constrain, tp_size, write_slots
+from ..parallel.meshed import attention_core
 from .specs import ParamSpec
 
 __all__ = ["rms_norm", "norm_specs", "rope", "attn_specs", "attention",
@@ -125,15 +126,21 @@ def _mask_bias(mode: str, q_pos: torch.Tensor, k_pos: torch.Tensor,
                        device=ok.device).masked_fill_(~ok, float("-inf"))
 
 
+def _scores(q, k, bias, softcap: float, scale: float):
+    """q: (B,S,KV,G,D), k: (B,T,KV,D), bias: (B,S,T).  Returns the biased,
+    capped scores (B,KV,G,S,T) float32."""
+    s = torch.einsum("bskgd,btkd->bkgst", q.float() * scale, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    return s + bias[:, None, None, :, :]
+
+
 def _scores_softmax_values(q, k, v, bias, softcap: float, scale: float):
     """q: (B,S,KV,G,D), k/v: (B,T,KV,D), bias: (B,S,T).  Returns
     (B,S,KV,G,D) float32."""
     if PERF_FLAGS["softmax_bf16_probs"]:
         raise not_ported("bf16 softmax probabilities (softmax_bf16_probs)", "A12")
-    s = torch.einsum("bskgd,btkd->bkgst", q.float() * scale, k.float())
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    s = s + bias[:, None, None, :, :]
+    s = _scores(q, k, bias, softcap, scale)
     m = torch.amax(s, dim=-1, keepdim=True).clamp_min(-1e30)  # fully masked rows
     p = torch.exp(s - m)
     denom = torch.sum(p, dim=-1, keepdim=True)
@@ -144,7 +151,11 @@ def _scores_softmax_values(q, k, v, bias, softcap: float, scale: float):
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
     d, h, dk = w.shape
-    return torch.matmul(x, w.to(x.dtype).reshape(d, h * dk)).unflatten(-1, (h, dk))
+    out = torch.matmul(x, w.to(x.dtype).reshape(d, h * dk))
+    # under a mesh, the flat heads split over TP only whole (a no-op on a
+    # plain tensor)
+    out = constrain(out, ("dp", None, "tp" if h % tp_size() == 0 else None))
+    return out.unflatten(-1, (h, dk))
 
 
 def attention(p: dict, x: torch.Tensor, cfg, *,
@@ -175,7 +186,6 @@ def attention(p: dict, x: torch.Tensor, cfg, *,
     """
     B, S, d = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    G = H // KV
     cdt = x.dtype
     scale = Dh ** -0.5
     static = cache is not None and not update_cache
@@ -204,7 +214,6 @@ def attention(p: dict, x: torch.Tensor, cfg, *,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    q5 = q.reshape(B, S, KV, G, Dh)
     new_cache = None
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
@@ -212,8 +221,8 @@ def attention(p: dict, x: torch.Tensor, cfg, *,
         k_pos = torch.arange(T, device=x.device)[None]               # (1, T)
         if update_cache:
             # decode: this step's kv into the cache at cache_pos
-            ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-            cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+            write_slots(ck, cache_pos, k.to(ck.dtype))
+            write_slots(cv, cache_pos, v.to(cv.dtype))
             k_valid = k_pos <= cache_pos
             if mode == "sliding" and window:
                 k_valid = k_valid & (k_pos > cache_pos - window)
@@ -222,37 +231,44 @@ def attention(p: dict, x: torch.Tensor, cfg, *,
         new_cache = cache
         bias = torch.zeros(k_valid.shape, dtype=torch.float32, device=x.device)
         bias = bias.masked_fill_(~k_valid, float("-inf"))[:, None, :]
-        out = _scores_softmax_values(q5, ck.to(cdt), cv.to(cdt),
-                                     bias.expand(B, S, T), cfg.attn_softcap, scale)
+        # under a mesh, a cache split by time is attended slice by slice
+        out = attention_core(
+            lambda *a: _scores_softmax_values(*a, cfg.attn_softcap, scale),
+            q, ck.to(cdt), cv.to(cdt), (bias.expand(B, S, T),), (("dp",),),
+            scores=lambda *a: _scores(*a, cfg.attn_softcap, scale))
     else:
         k_pos_full = positions if kv_input is None else torch.arange(
             k.shape[1], dtype=torch.int32, device=x.device)[None].expand(B, -1)
-        if q_chunk and S > q_chunk and S % q_chunk == 0:
-            # flash-style: a bias a chunk, so no (S, S) mask materializes
-            out = torch.empty((B, S, KV, G, Dh), dtype=torch.float32,
-                              device=x.device)
-            for lo in range(0, S, q_chunk):
-                hi = lo + q_chunk
-                bb = _mask_bias(mode, positions[:, lo:hi], k_pos_full,
-                                window=window, prefix_len=prefix_len)  # (B,c,T)
-                out[:, lo:hi] = _scores_softmax_values(
-                    q5[:, lo:hi], k, v, bb, cfg.attn_softcap, scale)
-        else:
-            bias_full = _mask_bias(mode, positions, k_pos_full, window=window,
-                                   prefix_len=prefix_len)             # (B,S,T)
-            out = _scores_softmax_values(q5, k, v, bias_full, cfg.attn_softcap,
-                                         scale)
+
+        def full_pass(q5, k, v, q_pos, k_pos):
+            if q_chunk and S > q_chunk and S % q_chunk == 0:
+                # flash-style: a bias a chunk, so no (S, S) mask materializes
+                out = torch.empty(q5.shape, dtype=torch.float32, device=q5.device)
+                for lo in range(0, S, q_chunk):
+                    hi = lo + q_chunk
+                    bb = _mask_bias(mode, q_pos[:, lo:hi], k_pos, window=window,
+                                    prefix_len=prefix_len)               # (B,c,T)
+                    out[:, lo:hi] = _scores_softmax_values(
+                        q5[:, lo:hi], k, v, bb, cfg.attn_softcap, scale)
+                return out
+            bias = _mask_bias(mode, q_pos, k_pos, window=window,
+                              prefix_len=prefix_len)                     # (B,S,T)
+            return _scores_softmax_values(q5, k, v, bias, cfg.attn_softcap, scale)
+
+        out = attention_core(full_pass, q, k, v, (positions, k_pos_full),
+                             (("dp",), ("dp",)))
         if build_cache:
             shape = (B, build_cache, KV, Dh)
-            zk = torch.zeros(shape, dtype=cache_dtype, device=x.device)
-            zv = torch.zeros(shape, dtype=cache_dtype, device=x.device)
+            zk = k.new_zeros(shape, dtype=cache_dtype)
+            zv = v.new_zeros(shape, dtype=cache_dtype)
             zk[:, :k.shape[1]] = k.to(cache_dtype)
             zv[:, :v.shape[1]] = v.to(cache_dtype)
             new_cache = {"k": zk, "v": zv}
 
     out = out.to(cdt).reshape(B, S, H * Dh)
     proj = torch.matmul(out, p["wo"].to(cdt).reshape(H * Dh, d))
-    return proj, new_cache
+    # row-parallel: the partial sums reduced here, under a mesh
+    return constrain(proj, ("dp", None, None)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -275,4 +291,4 @@ def ffn(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         g = F.gelu(g.float(), approximate="tanh").to(cdt)
     else:
         g = F.silu(g.float()).to(cdt)
-    return torch.matmul(g * u, p["w_down"].to(cdt))
+    return constrain(torch.matmul(g * u, p["w_down"].to(cdt)), ("dp", None, None))

@@ -36,9 +36,10 @@ from . import moe as M
 from . import rwkv as R
 from . import ssm as SSM
 from .config import ModelConfig
-from .specs import ParamSpec, init_params, tree_paths, _unflatten
+from .specs import ParamSpec, abstract_params, init_params
 from ..checkpoint.manager import _resolve_device
-from ..parallel.actctx import constrain
+from ..parallel.actctx import constrain, gather_weights
+from ..parallel.meshed import embed_lookup, xent_parts
 
 __all__ = ["Model"]
 
@@ -161,9 +162,7 @@ class Model(nn.Module):
     def abstract(self, dtype=torch.float32):
         """The parameter tree as tensors on the meta device: shapes and
         types, no storage (the reference's ShapeDtypeStruct tree)."""
-        return _unflatten({
-            path: torch.empty(spec.shape, dtype=dtype or spec.dtype, device="meta")
-            for path, spec in tree_paths(self.param_specs()).items()})
+        return abstract_params(self.param_specs(), param_dtype=dtype)
 
     # ------------------------------------------------------------------
     # embedding / head
@@ -171,14 +170,15 @@ class Model(nn.Module):
 
     def embed(self, params, tokens):
         cfg = self.cfg
-        x = params["embed"][tokens].to(_DTYPES[cfg.dtype])
+        x = embed_lookup(gather_weights(params["embed"]), tokens).to(_DTYPES[cfg.dtype])
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
         return constrain(x, ("dp", None, None))
 
     def unembed(self, params, h):
         cfg = self.cfg
-        w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+        w = gather_weights(params["lm_head"] if not cfg.tie_embeddings
+                           else params["embed"].T)
         # h's type for the operands, float32 products and sums (exact
         # products for bf16, as the reference's preferred_element_type=f32)
         logits = torch.matmul(h.float(), w.to(h.dtype).float())
@@ -195,6 +195,7 @@ class Model(nn.Module):
         """Unrolled pattern application.  Returns (x, aux, new_cache_g); aux
         is the group's summed MoE aux losses, None where it has no MoE."""
         cfg = self.cfg
+        gp = gather_weights(gp)           # under a mesh: ZeRO-3's gather
         aux = None
         decoding = cache_g is not None
         new_cache = {}
@@ -287,7 +288,7 @@ class Model(nn.Module):
         x = frames.to(_DTYPES[cfg.dtype])
         enc = params["encoder"]
         for g in range(cfg.n_enc_layers):
-            sub = _index(enc["layers"], g)["l0"]
+            sub = gather_weights(_index(enc["layers"], g)["l0"])
             h = L.rms_norm(sub["ln1"], x, cfg.norm_eps)
             a, _ = L.attention(sub["attn"], h, cfg, mode="bidir")
             x = x + a
@@ -346,11 +347,10 @@ class Model(nn.Module):
         for lo in range(0, Sl, c):
             tc, mc = targets[:, lo:lo + c], mask[:, lo:lo + c]
             logits = self.unembed(params, h[:, lo:lo + c])  # (B, c, V) float32
-            lse = torch.logsumexp(logits, dim=-1)
-            tgt = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+            lse, tgt, hit = xent_parts(logits, tc)
             nll.append(((lse - tgt) * mc).sum())
             cnt.append(mc.sum())
-            corr.append(((logits.argmax(-1) == tc) * mc).sum())
+            corr.append((hit * mc).sum())
         total = torch.clamp_min(torch.stack(cnt).sum(), 1.0)
         xent = torch.stack(nll).sum() / total
         loss = xent + cfg.router_aux_weight * aux["lb_loss"] \

@@ -112,7 +112,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
     cdt = x.dtype
     C = int(min(max(1, round(S * K / E * cfg.capacity_factor)), S * K))
 
-    logits = torch.matmul(x.float(), p["router"].float())             # (B,S,E)
+    logits = constrain(torch.matmul(x.float(), p["router"].float()),
+                       ("dp", None, None))                             # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_k, idx_k = _top_k(probs, K, largest=True)               # (B,S,K)
     gate_k = gate_k / torch.clamp_min(gate_k.sum(-1, keepdim=True), 1e-9)

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import compressed
-from ..parallel.actctx import constrain
+from ..parallel.actctx import constrain, shard_map
+from ..parallel.meshed import shift_time
 from .specs import ParamSpec
 
 _LW_FLOOR = -25.0 / 32.0   # per-step log-decay floor (see rwkv_time_mix)
@@ -73,7 +74,7 @@ def rwkv_channel_specs(cfg) -> dict:
 def _shift(x: torch.Tensor, carry: torch.Tensor | None = None) -> torch.Tensor:
     """x_{t-1}; the first position takes ``carry`` (decode) or zeros."""
     if carry is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+        return shift_time(x)
     return torch.cat([carry[:, None], x[:, :-1]], dim=1)
 
 
@@ -147,26 +148,36 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg, chunk: int = 32,
         chunk = S
     nc = S // chunk
 
-    def c5(t):                                         # -> (nc, B, L, H, D)
-        return t.reshape(B, nc, chunk, H, D).transpose(0, 1)
+    def scan(r, k, v, lw, u, state):
+        b, h = r.shape[0], r.shape[2]
 
-    r_c, k_c, v_c, lw_c = c5(r), c5(k), c5(v), c5(lw)
+        def c5(t):                                     # -> (nc, b, L, h, D)
+            return t.reshape(b, nc, chunk, h, D).transpose(0, 1)
+
+        r_c, k_c, v_c, lw_c = c5(r), c5(k), c5(v), c5(lw)
+        causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                       device=r.device), -1)  # strictly lower
+        ys = []
+        for i in range(nc):
+            state, y_i = _chunk(state, r_c[i], k_c[i], v_c[i], lw_c[i], u, causal)
+            ys.append(y_i)
+        return torch.stack(ys).transpose(0, 1).reshape(b, S, h, D), state
+
     state = state0 if state0 is not None else torch.zeros(
         (B, H, D, D), dtype=torch.float32, device=x.device)
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
-                                   device=x.device), -1)     # strictly lower
-    ys = []
-    for i in range(nc):
-        state, y_i = _chunk(state, r_c[i], k_c[i], v_c[i], lw_c[i], u, causal)
-        ys.append(y_i)
-    y = torch.stack(ys).transpose(0, 1).reshape(B, S, H, D)
+    # local over batch and heads: under a mesh, on this rank's shards
+    heads = ("dp", None, "tp")
+    y, state = shard_map(scan, (r, k, v, lw, u, state),
+                         (heads, heads, heads, heads, ("tp",), ("dp", "tp")),
+                         out_like=(0, 5))
     y = _group_norm(y, _heads(p["ln_scale"], H, D), cfg.norm_eps)
     y = y.reshape(B, S, d).to(cdt) * F.silu(g.float()).to(cdt)
     if PERF_FLAGS["compressed_tp"]:
         out = compressed.rowparallel_einsum_compressed(y, p["w_o"])
     else:
         out = torch.matmul(y, p["w_o"].to(cdt))
-    return out, (x[:, -1], state)
+    # row-parallel: the partial sums reduced here, under a mesh
+    return constrain(out, ("dp", None, None)), (x[:, -1], state)
 
 
 def rwkv_time_step(p: dict, x: torch.Tensor, cfg, shift_carry, state):
@@ -188,6 +199,7 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg, shift_carry=None):
         kv = compressed.rowparallel_einsum_compressed(k, p["w_v"])
     else:
         kv = torch.matmul(k, p["w_v"].to(cdt))
+    kv = constrain(kv, ("dp", None, None))          # row-parallel, as above
     rgate = torch.sigmoid(
         torch.matmul(xr, p["w_r"].to(cdt)).float()).to(cdt)
     return rgate * kv, x[:, -1]

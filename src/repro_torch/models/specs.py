@@ -10,17 +10,21 @@ written by either package loads into either model by name.
 "ones" = the constant ``scale``; normal x ``scale / sqrt(fan_in)``) but
 draws from a ``torch.Generator``, whose numbers are not ``jax.random``'s:
 parity with the reference comes from carrying its weights across.
+``abstract_params`` gives the tree on the meta device (the dry run's
+stand-in) and ``map_logical`` maps a function over the specs, keeping the
+nesting (the sharding rules of :mod:`repro_torch.parallel.sharding`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
-__all__ = ["ParamSpec", "init_params", "tree_paths"]
+__all__ = ["ParamSpec", "init_params", "abstract_params", "map_logical",
+           "tree_paths"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +68,19 @@ def init_params(spec_tree, generator: torch.Generator, param_dtype=None):
                              dtype=torch.float32) * std).to(dtype)
         out_flat[path] = t
     return _unflatten(out_flat)
+
+
+def abstract_params(spec_tree, param_dtype=None):
+    """The tree as tensors on the meta device: shapes and types, no
+    storage (the reference's ShapeDtypeStruct tree)."""
+    return _unflatten({
+        p: torch.empty(s.shape, dtype=param_dtype or s.dtype, device="meta")
+        for p, s in tree_paths(spec_tree).items()})
+
+
+def map_logical(spec_tree, fn: Callable[[ParamSpec], Any]):
+    """``fn(spec)`` for every leaf, in the tree's nesting."""
+    return _unflatten({p: fn(s) for p, s in tree_paths(spec_tree).items()})
 
 
 def _unflatten(flat: dict):

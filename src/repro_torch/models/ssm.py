@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.actctx import constrain
+from ..parallel.actctx import constrain, shard_map
+from ..parallel.meshed import shift_time
 from .layers import not_ported
 from .specs import ParamSpec
 
@@ -60,7 +61,8 @@ def _ssm_params(p, x, cfg):
     """x: (B, S, di) -> a=exp(dt*A) (B,S,di,n), bx (B,S,di,n), c (B,S,n)."""
     n = cfg.ssm_state
     dt_rank = p["x_proj"].shape[1] - 2 * n
-    xp = torch.matmul(x, p["x_proj"].to(x.dtype))
+    # row-parallel over di: the partial sums reduced here, under a mesh
+    xp = constrain(torch.matmul(x, p["x_proj"].to(x.dtype)), ("dp", None, None))
     dt_in, b_in, c_in = torch.split(xp, [dt_rank, n, n], dim=-1)
     dt = _softplus(torch.matmul(dt_in, p["dt_proj"].to(x.dtype)).float()
                    + p["dt_bias"].float())                               # (B,S,di)
@@ -78,8 +80,7 @@ def _combine(x, y):
 
 def _interleave(even, odd):
     """even[0], odd[0], even[1], ... along dim 0."""
-    out = torch.empty((even.shape[0] + odd.shape[0],) + tuple(even.shape[1:]),
-                      dtype=even.dtype, device=even.device)
+    out = even.new_empty((even.shape[0] + odd.shape[0],) + tuple(even.shape[1:]))
     out[0::2] = even
     out[1::2] = odd
     return out
@@ -118,7 +119,7 @@ def _conv1d(p, x, cfg):
     xf = x.float()
     out = xf * w[K - 1]
     for k in range(1, K):
-        shifted = F.pad(xf, (0, 0, k, 0))[:, :-k]
+        shifted = shift_time(xf, k)
         out = out + shifted * w[K - 1 - k]
     return (out + p["conv_b"].float()).to(x.dtype)
 
@@ -141,11 +142,20 @@ def mamba(p: dict, x: torch.Tensor, cfg, chunk: int = 64,
     if S % chunk:
         chunk = S  # fallback: single chunk (smoke-test sizes)
     h = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32, device=x.device)
+
+    def scan(a, bx, c, h):
+        h_all, h = _chunk_scan(a.transpose(0, 1), bx.transpose(0, 1), h)  # (L,B,di,n)
+        return torch.einsum("lbcn,bln->blc", h_all, c), h                # (B,L,di)
+
     ys = []
     for lo in range(0, S, chunk):
         a, bx, c = _ssm_params(p, xin[:, lo:lo + chunk], cfg)            # (B,L,di,n)
-        h_all, h = _chunk_scan(a.transpose(0, 1), bx.transpose(0, 1), h)  # (L,B,di,n)
-        ys.append(torch.einsum("lbcn,bln->blc", h_all, c))               # (B,L,di)
+        # local over batch and d_inner: under a mesh, on this rank's shards
+        y_c, h = shard_map(scan, (a, bx, c, h),
+                           (("dp", None, "tp"), ("dp", None, "tp"), ("dp",),
+                            ("dp", "tp")),
+                           out_like=(((B, a.shape[1], di), ("dp", None, "tp")), 3))
+        ys.append(y_c)
     y = torch.cat(ys, dim=1)
     y = y + xin.float() * p["d_skip"].float()
     y = y.to(cdt) * F.silu(z.float()).to(cdt)
@@ -153,7 +163,8 @@ def mamba(p: dict, x: torch.Tensor, cfg, chunk: int = 64,
     if not return_state:
         return out
     ktail = cfg.ssm_conv - 1
-    conv_state = F.pad(xin_pre, (0, 0, max(ktail - S, 0), 0))[:, -ktail:]
+    conv_state = xin_pre[:, S - ktail:] if S >= ktail else \
+        F.pad(xin_pre, (0, 0, ktail - S, 0))
     return out, {"conv": conv_state, "ssm": h}
 
 

@@ -76,7 +76,16 @@ def _sub_product(a, q, s, chunk: int = 1 << 24):
     compiles the reference's ``gf - deq`` into.  q is an integer of at most
     127 and a within half a quantum of q * s, so float64 holds the product
     and the difference exactly (Sterbenz); the work goes in chunks to bound
-    the float64 temporaries."""
+    the float64 temporaries.  DTensors are computed shard by shard (the
+    product is elementwise)."""
+    if type(a) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(a, DTensor):
+            mesh, pl = a.device_mesh, a.placements
+            out = _sub_product(a.to_local(), q.redistribute(mesh, pl).to_local(),
+                               s.full_tensor() if isinstance(s, DTensor) else s, chunk)
+            return DTensor.from_local(out, mesh, pl, run_check=False,
+                                      shape=a.shape, stride=a.stride())
     out = torch.empty_like(a)
     a1, q1, o1 = a.reshape(-1), q.reshape(-1), out.view(-1)
     s64 = s.double()

@@ -41,6 +41,9 @@ import repro_torch.models.moe, repro_torch.models.ssm
 import repro_torch.serve, repro_torch.launch.serve
 import repro_torch.train, repro_torch.launch.train
 import repro_torch.io.merger, repro_torch.tune
+import repro_torch.parallel.sharding, repro_torch.parallel.meshed, repro_torch.launch.mesh
+import repro_torch.launch.specs, repro_torch.launch.hlo_cost
+import repro_torch.launch.dryrun
 repro_torch.configs.get_config("rwkv6-1.6b")
 assert not any(m.split(".")[0] in {blocked!r} for m in sys.modules), \\
     sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
