@@ -7,7 +7,7 @@ Run from the repository root:  python3 chip_smoke.py
 It builds the port's kernels from ``src/repro_torch/kernels/csrc``, then
 runs, failing on the first error:
 
-1. every kernel against its plain PyTorch version on the card: the six
+1. every kernel against its plain PyTorch version on the card: the eight
    preconditioners byte-equal over itemsizes 1/2/4/8 and ragged sizes up to
    a 100 MB basket, and qpack/qunpack bit-equal over R x C shapes, types,
    zero rows, .5 ties, non-finite rows, the serve path's shapes, k = 1 and 3
@@ -17,9 +17,16 @@ runs, failing on the first error:
    qpack at the edges of its launch (C at a block's 32, 128 and 256 threads
    and at 16 chunks +-1, C % 16 = 1 ... 15, inputs 4 and 8 bytes off a
    16-byte boundary) and timed at (32768, 2048) in f32 and bf16;
-   then undelta under stress (n = 0, a tail alone, one tile and one tile
+   then the forward delta, zigzag and unzigzag (one vector path) at the
+   lengths it turns on (0, 1, 15, 16, 17, 256 and 269 313 vectors plus or
+   minus an element, every tail 1..I-1, a tail alone, the signed extremes,
+   zigzag's round trip), timed at 100 MB for I = 1, 2, 4, 8 and delta at
+   its 1 MiB basket with I = 8 (events beside ``torch.diff`` and a copy,
+   host and device microseconds, exactly one device operation a call, a
+   tail included), zigzag in turns with delta; and undelta under stress
+   (n = 0, a tail alone, one tile and one tile
    plus or minus an element, the wrap mod 2**(8*I), 100 MB baskets timed
-   beside ``torch.cumsum`` with delta beside ``torch.diff``, pointers I bytes
+   beside ``torch.cumsum``, all four at pointers I bytes
    off a 16-byte boundary, back-to-back calls of growing size on one
    stream, eight threads on one stream, two streams at once, one device
    operation and no allocation but the output a call); bitshuffle and
@@ -37,7 +44,10 @@ runs, failing on the first error:
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
-   equal bytes from CPU tensors, and the restore is bitwise;
+   equal bytes from CPU tensors, and the restore is bitwise; then, as phase
+   3b, a save tuned to ``zigzag4`` (one candidate) of a signed int32 tensor
+   and the tree's ``Muon_charge`` from CUDA tensors, byte-equal to the CPU
+   tensors' save with the same decisions, restored bitwise;
 4. the main path: qwen3-8b at full width, depth 1 (its tree checked
    against the published widths), trained by ``repro_torch.launch.train``
    (``build``/``run``) for 4 steps of 8 x 128 tokens with compressed
@@ -106,15 +116,17 @@ runs, failing on the first error:
    bf16 GEMM and copy rates beside the data sheet's.
 
 Launch counters are zeroed just before phase 3 and read after it (the
-event tree's save and restore), zeroed again just before phase 4's
+event tree's save and restore), zeroed before phase 3b and read after it
+(the zigzag kernels' path), zeroed again just before phase 4's
 trainer and read after its save and after its restore (the main path),
 around phase 4c's elastic restore, and before and after phase 4b's tuned
 save and its restore,
 zeroed before phase 5's serve run and read after it (the rwkv6 serve
 path), and again around the timed runs of phases 6, 7 and 8 (the dense,
 hybrid and MoE serve paths, which launch none of the port's kernels).  A kernel's ``launches`` in the
-JSON record is the sum over phases 3, 4, 4c and 4b (the checkpoint
-kernels) or phase 5 (qpack, qunpack).  Each phase prints its seconds.  At the end
+JSON record is the sum over phases 3, 3b, 4, 4c and 4b (the checkpoint
+kernels) or phase 5 (qpack, qunpack); zigzag and unzigzag, which replace
+no Pallas kernel, carry ``"port_only": true``.  Each phase prints its seconds.  At the end
 the script stops multiprocessing's forkserver and resource tracker and
 lists its descendants from ``/proc``: if any is still alive after 10 s it
 prints them and exits 1 with no result.  The second-to-last line is the
@@ -127,6 +139,7 @@ import functools
 import hashlib
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -234,6 +247,20 @@ def device_ops(fn, calls: int = 50) -> tuple:
             {e.key: e.count for e in evs})
 
 
+def device_ops_best(fn, calls: int = 50, tries: int = 3) -> tuple:
+    """:func:`device_ops` of the try that saw the most operations (up to
+    ``tries``, stopping at one a call or more): the profiler may drop an
+    event, never add one."""
+    best = None
+    for _ in range(tries):
+        got = device_ops(fn, calls)
+        if best is None or got[1] > best[1]:
+            best = got
+        if best[1] >= 1:
+            break
+    return best
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernels vs plain versions
 # ---------------------------------------------------------------------------
@@ -247,7 +274,11 @@ REPLACES = {
     "undelta": "src/repro/kernels/delta.py:61",
     "qpack": "src/repro/kernels/qpack.py:51",
     "qunpack": "src/repro/kernels/qpack.py:75",
+    # port-only: no Pallas kernel; the reference's host functions
+    "zigzag": "src/repro/core/precond.py:180",
+    "unzigzag": "src/repro/core/precond.py:192",
 }
+PORT_ONLY = ("zigzag", "unzigzag")
 SOURCE = {
     "bitshuffle": "src/repro_torch/kernels/csrc/bitshuffle.cu",
     "bitunshuffle": "src/repro_torch/kernels/csrc/bitshuffle.cu",
@@ -257,14 +288,18 @@ SOURCE = {
     "undelta": "src/repro_torch/kernels/csrc/delta.cu",
     "qpack": "src/repro_torch/kernels/csrc/qpack.cu",
     "qunpack": "src/repro_torch/kernels/csrc/qpack.cu",
+    "zigzag": "src/repro_torch/kernels/csrc/zigzag.cu",
+    "unzigzag": "src/repro_torch/kernels/csrc/zigzag.cu",
 }
 # the largest basket the checkpoint path hands each kernel: qwen3-8b's
-# ffn.w_gate at depth 1 (f32: bitshuffle4; its bf16 moments: shuffle2) and
-# the event tree's 1 MiB offset baskets (delta8+shuffle8)
+# ffn.w_gate at depth 1 (f32: bitshuffle4; its bf16 moments: shuffle2),
+# the event tree's 1 MiB offset baskets (delta8+shuffle8) and phase 3b's
+# tuned 1 MiB baskets of int32 (zigzag4)
 MAIN_SHAPES = {
     "bitshuffle": (4, 4096 * 12288 * 4), "bitunshuffle": (4, 4096 * 12288 * 4),
     "byteshuffle": (2, 4096 * 12288 * 2), "byteunshuffle": (2, 4096 * 12288 * 2),
     "delta": (8, 1 << 20), "undelta": (8, 1 << 20),
+    "zigzag": (4, 1 << 20), "unzigzag": (4, 1 << 20),
 }
 
 
@@ -346,7 +381,7 @@ def phase_kernels(torch, K, ref):
                                      nbytes - nbytes % itemsize)
             assert torch.equal(back, x)
             for fwd, inv in (("byteshuffle", "byteunshuffle"),
-                             ("delta", "undelta")):
+                             ("delta", "undelta"), ("zigzag", "unzigzag")):
                 assert torch.equal(K[inv](K[fwd](x, itemsize), itemsize), x)
     log(f"phase 1: {checked} kernel runs byte-equal to their plain versions "
         f"(itemsizes 1/2/4/8, element counts {sizes} + 1 MiB + 100 MB + the "
@@ -401,6 +436,8 @@ def phase_kernels(torch, K, ref):
                              "bound_by": "bytes", "library_ms": lib_ms,
                              "itemsize": itemsize, "bytes": nbytes,
                              "d2d_copy_ms": copy_ms, **extra.get(name, {})})
+                if name in PORT_ONLY:
+                    rows[-1]["port_only"] = True
     return rows
 
 
@@ -846,45 +883,147 @@ def _scan_equal(torch, ref, name, got, x, itemsize, what):
                              "from the plain version")
 
 
+def _one_op(torch, fn, kernel):
+    """Device operations of a call of ``fn``: exactly one, ``kernel``'s
+    (the profiler may drop an event, never add one: up to five tries)."""
+    d, per_call, names = device_ops_best(fn, 20, tries=5)
+    assert per_call == 1 and len(names) == 1 and \
+        re.search(rf"\b{kernel}_kernel<", next(iter(names))), (kernel, names)
+    return d, per_call
+
+
+DELTA_LARGE_MS = 0.072            # 100 MB, every I: 83 % of the bound's rate
+DELTA_DEVICE_US = (1.3, 1.5)      # 1 MiB, I = 8: the launch's floor
+
+
 def phase_scan(torch, K, ref):
-    """undelta byte-equal to its plain version over the cases its design
-    turns on, delta and undelta timed at 100 MB; returns {name: {itemsize:
-    times}}."""
+    """The forward maps (delta, zigzag, unzigzag) and undelta byte-equal to
+    their plain versions over the cases their designs turn on; all four
+    timed at 100 MB for I = 1, 2, 4, 8 and delta at its 1 MiB basket
+    (events, host and device µs, operations a call, beside ``torch.diff``
+    and a copy); returns {name: {itemsize: times}}."""
     import threading
     from repro_torch.kernels import delta as dmod
     g = torch.Generator(device="cuda").manual_seed(3)
     undelta = K["undelta"]
+    maps = ("delta", "zigzag", "unzigzag")
 
     def rand(nbytes):
         return torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device="cuda",
                              generator=g)
 
-    large = {"delta": {}, "undelta": {}}
+    large = {name: {} for name in ("delta", "undelta", "zigzag", "unzigzag")}
     targets = []
     log("kernel    itemsize  bytes        ms        GB/s    bound_ms  library_ms"
-        "   (library: torch.diff, torch.cumsum)")
-    for itemsize in (4, 8):
+        "  copy_ms   host_us  device_us  ops   (library: torch.diff, "
+        "torch.cumsum; beside zigzag, delta)")
+    for itemsize in (1, 2, 4, 8):
         x = rand(SCAN_LARGE)
-        for name in ("delta", "undelta"):
+        dst = torch.empty_like(x)
+        copy_ms = cuda_ms(lambda: dst.copy_(x), 20, 3)
+        bound_ms = 2 * SCAN_LARGE / HBM_BYTES_PER_S * 1e3
+        for name in ("delta", "undelta", "zigzag", "unzigzag"):
             kern = K[name]
             got = kern(x, itemsize)
             _scan_equal(torch, ref, name, got, x, itemsize, "100 MB")
-            ms, lib_ms = paired_ms(lambda: kern(x, itemsize),
-                                   _library_call(name, x, itemsize), 20, 3)
-            bound_ms = 2 * SCAN_LARGE / HBM_BYTES_PER_S * 1e3
-            large[name][itemsize] = {"bytes": SCAN_LARGE, "ms": ms,
-                                     "library_ms": lib_ms, "bound_ms": bound_ms}
+            del got
+            lib = _library_call(name, x, itemsize) if name in ("delta", "undelta") \
+                else (lambda: K["delta"](x, itemsize, out=dst))
+            ms, lib_ms = paired_ms(lambda: kern(x, itemsize, out=dst) if name in maps
+                                   else kern(x, itemsize), lib, 20, 3)
+            row = {"bytes": SCAN_LARGE, "ms": ms, "library_ms": lib_ms,
+                   "bound_ms": bound_ms, "d2d_copy_ms": copy_ms}
+            txt = ""
+            if name in maps:
+                h = host_us(lambda: kern(x, itemsize, out=dst), calls=100, rounds=3)
+                d, ops = _one_op(torch, lambda: kern(x, itemsize, out=dst), name)
+                row.update(host_us=h, device_us=d, device_ops_per_call=ops)
+                txt = f"  {h:8.2f}  {d:9.2f}  {ops:g}"
+            large[name][itemsize] = row
             log(f"{name:9s} {itemsize:8d}  {SCAN_LARGE:11d}  {ms:8.4f}  "
                 f"{2 * SCAN_LARGE / ms / 1e6:7.1f}  {bound_ms:8.4f}  "
-                f"{lib_ms:10.4f}   [100 MB]")
-            if name == "undelta":
+                f"{lib_ms:10.4f}  {copy_ms:7.4f}{txt}   [100 MB]")
+            if name == "undelta" and itemsize in (4, 8):
                 targets.append(f"undelta {itemsize} x 100 MB: {ms:.4f} ms vs "
                                f"{UNDELTA_SLOWEST_MS} ms (half the {bound_ms:.4f} ms "
                                f"bound's rate): "
                                f"{'met' if ms <= UNDELTA_SLOWEST_MS else 'missed'}")
-        del x, got
+            if name == "delta":
+                targets.append(
+                    f"delta {itemsize} x 100 MB: {ms:.4f} ms vs {DELTA_LARGE_MS} ms "
+                    f"({100 * bound_ms / ms:.0f} % of the {bound_ms:.4f} ms bound; "
+                    f"copy {copy_ms:.4f} ms, torch.diff {lib_ms:.4f} ms): "
+                    f"{'met' if ms <= DELTA_LARGE_MS else 'missed'}")
+            if name in ("zigzag", "unzigzag"):
+                targets.append(
+                    f"{name} {itemsize} x 100 MB: {ms:.4f} ms vs delta's "
+                    f"{lib_ms:.4f} ms in turns, within 5 %: "
+                    f"{'met' if ms <= 1.05 * lib_ms else 'missed'}")
+        del x, dst
 
+    # delta at the main path's basket, and with a tail: one operation a call
+    for label, itemsize, nbytes in (("1 MiB", 8, 1 << 20), ("1 MiB + tail", 8, (1 << 20) + 3),
+                                    ("1 MiB", 4, 1 << 20), ("1 MiB + tail", 4, (1 << 20) + 3)):
+        x, out = rand(nbytes), torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        for name in (maps if itemsize == 4 else ("delta",)):
+            kern = K[name]
+            _scan_equal(torch, ref, name, kern(x, itemsize), x, itemsize, label)
+            lib = _library_call(name, x, itemsize)
+            if lib is None:
+                ms, lib_ms = cuda_ms(lambda: kern(x, itemsize, out=out), 200, 5), None
+            else:
+                ms, lib_ms = paired_ms(lambda: kern(x, itemsize, out=out), lib, 200)
+            copy_ms = cuda_ms(lambda: out.copy_(x), 200, 5)
+            h = host_us(lambda: kern(x, itemsize, out=out))
+            d, ops = _one_op(torch, lambda: kern(x, itemsize, out=out), name)
+            bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            large[name][f"{label}, I = {itemsize}"] = {
+                "bytes": nbytes, "ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                "d2d_copy_ms": copy_ms, "host_us": h, "device_us": d,
+                "device_ops_per_call": ops}
+            lib_txt = "-" if lib_ms is None else f"{lib_ms:.4f}"
+            log(f"{name:9s} {itemsize:8d}  {nbytes:11d}  {ms:8.4f}  "
+                f"{2 * nbytes / ms / 1e6:7.1f}  {bound_ms:8.4f}  {lib_txt:>10}  "
+                f"{copy_ms:7.4f}  {h:8.2f}  {d:9.2f}  {ops:g}   [{label}]")
+            if name == "delta" and label == "1 MiB" and itemsize == 8:
+                lo, hi = DELTA_DEVICE_US
+                targets.append(f"delta 1 MiB, I = 8, device us a call: {d:.2f} in "
+                               f"[{lo}, {hi}]: {'met' if d <= hi else 'missed'}; "
+                               f"events {ms:.4f} ms, host {h:.2f} us")
+    for name in maps:
+        for label in ("1 MiB + tail, I = 8", "1 MiB + tail, I = 4"):
+            if label in large[name]:
+                targets.append(f"{name} {label}: operations a call "
+                               f"{large[name][label]['device_ops_per_call']:g} "
+                               "(asserted): met")
+
+    # the forward maps at the lengths their vector path turns on: 0, 1, 15,
+    # 16, 17 vectors, a block and the first deep grid, each +-1 element,
+    # with every tail 1..I-1 (n = 0: a tail alone)
     checked = 0
+    deep = 263 * 1024 + 1          # vectors: the deep grid's first length
+    for itemsize in (1, 2, 4, 8):
+        v = 16 // itemsize
+        for n in sorted({max(0, c * v + d) for c in (0, 1, 15, 16, 17, 256, deep)
+                         for d in (-1, 0, 1)}):
+            for tail in range(itemsize):
+                x = rand(n * itemsize + tail)
+                for name in maps:
+                    _scan_equal(torch, ref, name, K[name](x, itemsize), x, itemsize,
+                                f"{n} elements + {tail}")
+                    checked += 1
+                back = K["unzigzag"](K["zigzag"](x, itemsize), itemsize)
+                assert torch.equal(back, x), (itemsize, n, tail)
+        # every signed width's extremes
+        info = torch.iinfo(ref._SIGNED[itemsize])
+        ext = torch.tensor([info.min, info.max, -1, 0, 1] * 1000,
+                           dtype=ref._SIGNED[itemsize], device="cuda").view(torch.uint8)
+        for name in maps:
+            _scan_equal(torch, ref, name, K[name](ext, itemsize), ext, itemsize,
+                        "extremes")
+            checked += 1
+        assert torch.equal(K["unzigzag"](K["zigzag"](ext, itemsize), itemsize), ext)
+
     tile = dmod.TILE_BYTES
     for itemsize in (1, 2, 4, 8):
         # n = 0, a tail alone, one tile, one tile -/+ an element, several
@@ -911,7 +1050,7 @@ def phase_scan(torch, K, ref):
                 dst = out[obase + lo_out:obase + lo_out + nbytes]
                 assert (x.data_ptr() % 16, dst.data_ptr() % 16) == \
                     (lo_in % 16, lo_out % 16)
-                for name in ("delta", "undelta"):
+                for name in ("delta", "undelta", "zigzag", "unzigzag"):
                     got = K[name](x, itemsize, out=dst)
                     _scan_equal(torch, ref, name, got, x, itemsize,
                                 f"offsets {lo_in}/{lo_out}, {nbytes} bytes")
@@ -987,12 +1126,7 @@ def phase_scan(torch, K, ref):
     # one device operation a call, and nothing allocated but the output
     # (nothing at all with out=); the profiler may drop an event, never add one
     x, out = rand(1 << 20), torch.empty(1 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        _, per_call, names = device_ops(lambda: undelta(x, 8, out=out), 10)
-        if per_call >= 1:
-            break
-    assert per_call == 1 and len(names) == 1, names
-    assert "undelta_kernel" in next(iter(names)), names
+    _one_op(torch, lambda: undelta(x, 8, out=out), "undelta")
     stat = "allocation.all.allocated"
     n0 = torch.cuda.memory_stats()[stat]
     for _ in range(10):
@@ -1002,9 +1136,12 @@ def phase_scan(torch, K, ref):
         undelta(x, 8)
     n2 = torch.cuda.memory_stats()[stat]
     assert (n1 - n0, n2 - n1) == (0, 10), (n1 - n0, n2 - n1)
-    log(f"phase 1: {checked} undelta runs byte-equal to the plain version beyond "
-        "the table above (itemsizes 1/2/4/8: n = 0, a tail alone, one tile, one "
-        "tile -/+ an element, 7 tiles, the wrap; delta too at pointers I bytes "
+    log(f"phase 1: {checked} delta, zigzag, unzigzag and undelta runs byte-equal "
+        "to the plain versions beyond the table above (itemsizes 1/2/4/8; the "
+        "maps at 0, 1, 15, 16, 17, 256 and 269 313 vectors -/+ an element with "
+        "every tail 1..I-1, zigzag's round trip, the signed extremes; undelta "
+        "at n = 0, a tail alone, one tile, one "
+        "tile -/+ an element, 7 tiles, the wrap; all four at pointers I bytes "
         f"off a 16-byte boundary; {len(calls)} back-to-back calls of growing size "
         f"on one stream, its workspace grown from {before} to {after} tiles; 8 "
         "threads on one stream; 2 streams at once with their own workspaces); one device "
@@ -1033,6 +1170,12 @@ def _small_calls(torch, K):
         for name in ("bitshuffle", "bitunshuffle"):
             args = _inputs(name, x, 4, K)
             calls[f"{name} {label}"] = ((lambda f=K[name], a=args: f(*a)), None)
+    # the one-pass maps with a tail
+    x = torch.randint(0, 256, ((1 << 20) + 3,), dtype=torch.uint8, device="cuda",
+                      generator=g)
+    for name in ("delta", "zigzag", "unzigzag"):
+        itemsize = MAIN_SHAPES[name][0]
+        calls[f"{name} +tail"] = ((lambda f=K[name], a=x, i=itemsize: f(a, i)), None)
     # the byte shuffles at the lm_head basket, and with a tail (the
     # yardstick transposes the elements alone)
     for label, nbytes in (("main", LM_HEAD_BASKET), ("+tail", LM_HEAD_BASKET + 1)):
@@ -1058,10 +1201,7 @@ def phase_launch_split(torch, K):
     log("kernel               host_us  device_us  ops/call   library host_us  device_us")
     for name, (kern, lib) in _small_calls(torch, K).items():
         h = host_us(kern)
-        for _ in range(3):              # the profiler may drop an event
-            d, ops_per_call, names = device_ops(kern)
-            if ops_per_call >= 1:
-                break
+        d, ops_per_call, names = device_ops_best(kern)
         row = {"host_us": h, "device_us": d, "device_ops_per_call": ops_per_call}
         txt = "-"
         if lib is not None:
@@ -1079,10 +1219,12 @@ def phase_launch_split(torch, K):
             # the kernel and nothing else; the profiler may drop an event
             assert len(names) == 1 and "qpack_kernel<" in next(iter(names)) \
                 and 0.9 <= ops_per_call <= 1, (name, names)
-        if kernel in ("bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle"):
+        if kernel in ("bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle",
+                      "delta", "zigzag", "unzigzag"):
             # the kernel and nothing else (a memcpy would be a second name, a
             # second launch two a call); the profiler may drop an event
-            assert len(names) == 1 and f"{kernel}_kernel<" in next(iter(names)) \
+            assert len(names) == 1 and re.search(rf"\b{kernel}_kernel<",
+                                                 next(iter(names))) \
                 and 0.9 <= ops_per_call <= 1, (name, names)
     # the small-shape targets, on each side of the call: the host's time to
     # issue it and the device's time to run it
@@ -1330,6 +1472,55 @@ def phase_events(torch, np, tmp, workers):
         f"{stats['raw'] / stats['comp']:.3f}")
     return {"gb": nbytes / 1e9, "save_s": save_s, "cpu_tensor_save_s": cpu_save_s,
             "restore_s": load_s, "ratio": stats["raw"] / stats["comp"]}, host, pg
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: a tuned zigzag save and restore on the card
+# ---------------------------------------------------------------------------
+
+ZIGZAG_CANDIDATES = [("zlib", 1, "zigzag4")]
+
+
+def phase_zigzag_save(torch, np, tmp, host, workers):
+    """A save and restore through the zigzag kernels: ``Tuner("min_bytes",
+    candidates=ZIGZAG_CANDIDATES)`` on a signed int32 tensor (16 MiB of
+    small magnitudes of both signs) and on the event tree's ``Muon_charge``
+    branch, saved from CUDA tensors, then from CPU tensors with the same
+    tuner (its decisions reused, so the two files must be byte-equal), and
+    restored to the card bitwise."""
+    from repro_torch.checkpoint import load_pytree, save_pytree, tree_from_numpy
+    from repro_torch.tune import Tuner, load_decisions
+    rng = np.random.default_rng(25)
+    tree = {"ids": rng.integers(-50_000, 50_000, 4 << 20).astype(np.int32),
+            "Muon_charge": host["Muon_charge"]}
+    assert tree["Muon_charge"].dtype == np.int32 and tree["Muon_charge"].min() < 0
+    gpu, cpu = tree_from_numpy(tree, "cuda"), tree_from_numpy(tree, "cpu")
+    tuner = Tuner("min_bytes", candidates=ZIGZAG_CANDIDATES)
+    pg = os.path.join(tmp, "zigzag-gpu.bskt")
+    pc = os.path.join(tmp, "zigzag-cpu.bskt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = save_pytree(pg, gpu, workers=workers, tuner=tuner)
+    save_s = time.perf_counter() - t0
+    save_pytree(pc, cpu, workers=workers, tuner=tuner)
+    assert tuner.stats["reused"] == len(tree), tuner.stats
+    decisions = {k: d["precond"] for k, d in load_decisions(pg).items()}
+    assert decisions == dict.fromkeys(tree, "zigzag4"), decisions
+    assert open(pg, "rb").read() == open(pc, "rb").read(), \
+        "tuned zigzag4: bytes from CUDA tensors differ from CPU tensors'"
+    t0 = time.perf_counter()
+    flat, _ = load_pytree(pg, device="cuda", workers=workers)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for k, v in gpu.items():
+        assert same_bits(flat[k], v), k
+    ratio = stats["raw"] / stats["comp"]
+    log(f"phase 3b: tuned zigzag4 save of {stats['raw'] / 1e6:.1f} MB (a signed "
+        f"int32 tensor and Muon_charge) from CUDA {save_s:.3f} s, bytes equal to "
+        f"the CPU tensors' save; restore to CUDA {load_s:.3f} s bitwise; ratio "
+        f"{ratio:.3f}; decisions {decisions}")
+    return {"mb": stats["raw"] / 1e6, "save_s": save_s, "restore_s": load_s,
+            "ratio": ratio, "decisions": decisions}
 
 
 # ---------------------------------------------------------------------------
@@ -2826,6 +3017,13 @@ def main() -> int:
         log(f"launches on the event tree's save and restore: {counts}")
         share = precond_share(torch, np, host_events, events["save_s"])
         done("phase 3")
+        ops.reset_launch_counts()                      # the tuned zigzag path
+        zigzag = phase_zigzag_save(torch, np, tmp, host_events, workers)
+        zz_counts = ops.launch_counts()
+        log(f"launches on the tuned zigzag save and restore: {zz_counts}")
+        for name in ("zigzag", "unzigzag"):
+            assert zz_counts[name] > 0, f"{name} never launched in phase 3b"
+        done("phase 3b")
         # the main path: the trainer's save, then its restore
         ops.reset_launch_counts()
         cfg4 = qwen3_8b_depth1_specs()[0]
@@ -2850,8 +3048,8 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     # the restore undoes every delta of the save: one undelta a basket
     assert counts["undelta"] == counts["delta"] > 0, counts
-    counts = {k: counts[k] + train_counts[k] + elastic_counts[k] + tuned_counts[k]
-              for k in counts}
+    counts = {k: counts[k] + zz_counts[k] + train_counts[k] + elastic_counts[k]
+              + tuned_counts[k] for k in counts}
     for name in ops.PRECOND_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the checkpoint path"
     import torch.distributed as dist
@@ -2883,7 +3081,8 @@ def main() -> int:
     done("phase 10")
     for row in rows:
         row["launches"] = counts[row["name"]]
-    log(json.dumps({"phase3_events": events, "phase4_train_qwen3_8b_depth1": train,
+    log(json.dumps({"phase3_events": events, "phase3b_zigzag_save": zigzag,
+                    "phase4_train_qwen3_8b_depth1": train,
                     "phase4b_tuned_save": tuned, "phase4c_elastic_restore": elastic,
                     "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
                     "phase6_serve_qwen3_8b": dense,

@@ -333,8 +333,8 @@ def save_pytree(path: str, tree, profile: str = "checkpoint",
     ``objective=`` (or an explicit ``tuner=``) chooses each branch's codec
     from trial compressions of the probe (:mod:`repro_torch.tune`) in
     place of the static ``profile``; the decisions persist in the file's
-    TOC.  A decision whose preconditioner has no kernel (``zigzag``)
-    raises for a tensor."""
+    TOC.  A tuned decision preconditions on the tensor's device exactly as
+    a static spec does (``zigzag{N}`` included)."""
     if staging not in ("stream", "gather"):
         raise ValueError(f"staging must be 'stream' or 'gather', got {staging!r}")
     if tuner is None and objective is not None:

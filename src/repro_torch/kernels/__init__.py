@@ -1,7 +1,7 @@
 """repro_torch.kernels — the port's hand-written GPU kernels.
 
-``bitshuffle``, ``byteshuffle`` and ``delta`` (the checkpoint's
-preconditioners) and ``qpack`` (the compressed TP reduction's int8
+``bitshuffle``, ``byteshuffle``, ``delta`` and ``zigzag`` (the
+checkpoint's preconditioners) and ``qpack`` (the compressed TP reduction's int8
 quantizer) each wrap a hand-written CUDA kernel (``csrc/*.cu``, built by
 ``_build`` at first use) and count its launches; ``ref`` holds their plain
 PyTorch versions, which a wrapper runs only for a tensor on the CPU.

@@ -28,10 +28,11 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
-__all__ = ["library", "call", "launch", "current_stream", "check_bytes",
+__all__ = ["library", "call", "map_elements", "current_stream", "check_bytes",
            "output", "require_aligned", "BUILD_DIR"]
 
 _HERE = Path(__file__).resolve().parent
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "rt_byteunshuffle": [_P, _P, _I64, _I, _I64],
     "rt_delta": [_P, _P, _I64, _I, _I64],
     "rt_undelta": [_P, _P, _I64, _I, _I64, _P, _I64],
+    "rt_zigzag": [_P, _P, _I64, _I, _I64],
+    "rt_unzigzag": [_P, _P, _I64, _I, _I64],
     "rt_qpack": [_P, _P, _P, _I64, _I64, _I, _F],
     "rt_qunpack": [_P, _P, _P, _I64, _I64, _I64, _I],
 }
@@ -198,10 +201,32 @@ def call(wrapper, symbol: str, index: int, *args, stream: int | None = None,
             wrapper.launches += 1
 
 
-def launch(wrapper, symbol: str, src: torch.Tensor, dst: torch.Tensor,
-           n: int, itemsize: int, tail: int) -> None:
-    """A preconditioner launcher over ``n`` elements and ``tail`` bytes from
-    ``src`` into ``dst``; counted when a kernel ran (``n > 0``: a tail
-    alone is a plain copy)."""
-    call(wrapper, symbol, src.get_device(), src.data_ptr(), dst.data_ptr(), n,
-         itemsize, tail, counted=n > 0)
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous byte tensors share any byte of memory."""
+    if a.device != b.device or not a.numel() or not b.numel():
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() and b0 < a0 + a.numel()
+
+
+def map_elements(wrapper, symbol: str, plain, buf: torch.Tensor, itemsize: int,
+                 out: Optional[torch.Tensor]) -> torch.Tensor:
+    """A preconditioner that maps a basket's elements to as many of the same
+    width, its tail passed through (delta, zigzag, unzigzag; the vector path
+    of ``csrc/vector_map.cuh``): ``plain`` for a CPU tensor, else launcher
+    ``symbol``, one launch a call.  ``out`` may not overlap ``buf``: the
+    kernels read through the non-coherent cache, and the delta reads each
+    element's neighbour from another thread."""
+    what = wrapper.__name__
+    check_bytes(buf, what)
+    dst = output(out, buf.numel(), buf, what)
+    if _overlaps(buf, dst):
+        raise ValueError(f"{what}: out overlaps the input")
+    if buf.device.type == "cpu":
+        return dst.copy_(plain(buf, itemsize))
+    require_aligned(itemsize, what, buf, dst)
+    if buf.numel():
+        n, tail = divmod(buf.numel(), itemsize)
+        call(wrapper, symbol, buf.get_device(), buf.data_ptr(), dst.data_ptr(),
+             n, itemsize, tail)
+    return dst

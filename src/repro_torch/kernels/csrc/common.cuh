@@ -33,15 +33,6 @@ constexpr unsigned kFullMask = 0xffffffffu;
     if (err_ != cudaSuccess) return static_cast<int>(err_);     \
   } while (0)
 
-// Pass the tail bytes through: out[dst_off:dst_off+tail] = in[src_off:...].
-inline cudaError_t copy_tail(const void* in, int64_t src_off, void* out,
-                             int64_t dst_off, int64_t tail, cudaStream_t s) {
-  if (tail <= 0) return cudaSuccess;
-  return cudaMemcpyAsync(static_cast<uint8_t*>(out) + dst_off,
-                         static_cast<const uint8_t*>(in) + src_off, tail,
-                         cudaMemcpyDeviceToDevice, s);
-}
-
 inline unsigned blocks_for(int64_t work, int64_t per_block) {
   return static_cast<unsigned>((work + per_block - 1) / per_block);
 }

@@ -12,13 +12,16 @@
 // for I = 1, 2, 4 and 8.
 //
 // Bound: data movement, N*I bytes read once and N*I written once:
-// 2*N*I / 3.35 TB/s on an H100 SXM (0.6 us for a 1 MiB basket, 60 us for
-// 100 MB).  The adds are free beside the bytes.  At the checkpoint's 1 MiB
-// baskets both kernels are a few microseconds of device work, so the host's
-// launch path (kernels/_build.py:call) sets the time of a call.
+// 2*N*I / 3.35 TB/s on an H100 SXM (0.63 us for a 1 MiB basket, 0.0597 ms
+// for 100 MB).  The adds are free beside the bytes.  At the checkpoint's
+// 1 MiB baskets both kernels are a few microseconds of device work, so the
+// host's launch path (kernels/_build.py:call) sets the time of a call.
 //
-// Delta: one element per thread, reading its left neighbour (the
-// neighbour's load hits the L1); the tail is a cudaMemcpyAsync.
+// Delta: the vector path of csrc/vector_map.cuh, one launch a call with its
+// tail.  Each thread loads whole 16-byte vectors (several a thread on large
+// baskets, all in flight before the first is used) and takes each vector's
+// left neighbour from the previous lane with __shfl_up_sync; lane 0 loads
+// its own.  Its design, grid and hazards are described there.
 //
 // Undelta: one launch a call, its tail included, with no memcpy, no memset
 // and nothing allocated.  A single-pass scan with decoupled look-back
@@ -39,7 +42,7 @@
 // its look-back with nothing in flight, the others' copies keep the memory
 // busy.
 //
-// Three hazards, and what the design does about each:
+// Three hazards of the scan, and what the design does about each:
 //
 // 1. Forward progress.  A block takes its tile index from an atomic ticket,
 //    not from blockIdx: blocks are not scheduled in index order, and a
@@ -68,7 +71,24 @@
 
 #include <type_traits>
 
+#include "vector_map.cuh"
+
 namespace {
+
+// the forward delta: the vector path
+template <int I, int K, bool kVec>
+__global__ void __launch_bounds__(vmap::kThreads)
+delta_kernel(const typename UInt<I>::T* __restrict__ in,
+             typename UInt<I>::T* __restrict__ out, int64_t n, int tail) {
+  vmap::map_vectors<vmap::Op::kDelta, I, K, kVec>(in, out, n, tail);
+}
+
+struct DeltaKernels {
+  template <int I, int K, bool kVec>
+  static vmap::Kernel<I> get() { return delta_kernel<I, K, kVec>; }
+};
+
+// the inverse: the look-back scan
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -91,13 +111,6 @@ constexpr unsigned long long kAggregate = 1, kPrefix = 2;  // flag & 3; 0: none
 template <int I>
 using Acc = typename std::conditional<I == 8, unsigned long long, uint32_t>::type;
 
-// one 16-byte vector of 16/I elements
-template <int I>
-union Vec {
-  uint4 u;
-  typename UInt<I>::T e[kVecBytes / I];
-};
-
 template <typename A>
 __device__ __forceinline__ A warp_inclusive_scan(A x) {
   const int lane = threadIdx.x & 31;
@@ -117,48 +130,12 @@ __device__ __forceinline__ A warp_sum(A x) {
   return x;
 }
 
-// v <- elements [e0, e0 + 16/I) of p, zero from n on, one at a time (a
-// pointer that is not 16-byte aligned)
-template <int I>
-__device__ __forceinline__ void load_elements(
-    const typename UInt<I>::T* __restrict__ p, int64_t e0, int64_t n, Vec<I>& v) {
-#pragma unroll
-  for (int j = 0; j < kVecBytes / I; ++j) v.e[j] = e0 + j < n ? p[e0 + j] : 0;
-}
-
-// p[e0 : min(e0 + 16/I, n)] <- v
-template <int I, bool kVec>
-__device__ __forceinline__ void store(typename UInt<I>::T* __restrict__ p,
-                                      int64_t e0, int64_t n, const Vec<I>& v) {
-  constexpr int V = kVecBytes / I;
-  if constexpr (kVec) {
-    if (e0 + V <= n) {
-      *reinterpret_cast<uint4*>(p + e0) = v.u;
-      return;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < V; ++j)
-    if (e0 + j < n) p[e0 + j] = v.e[j];
-}
-
 // the len % I tail bytes after the n elements pass through (one block)
 __device__ __forceinline__ void copy_tail_bytes(const void* in, void* out,
                                                 int64_t at, int tail) {
   if (static_cast<int>(threadIdx.x) < tail)
     static_cast<uint8_t*>(out)[at + threadIdx.x] =
         static_cast<const uint8_t*>(in)[at + threadIdx.x];
-}
-
-template <int I>
-__global__ void __launch_bounds__(kThreads)
-delta_kernel(const typename UInt<I>::T* __restrict__ in,
-             typename UInt<I>::T* __restrict__ out, int64_t n) {
-  using T = typename UInt<I>::T;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const T prev = e > 0 ? in[e - 1] : T(0);
-  out[e] = static_cast<T>(in[e] - prev);
 }
 
 __device__ __forceinline__ unsigned long long ld_acquire(
@@ -254,8 +231,8 @@ undelta_kernel(const typename UInt<I>::T* __restrict__ in,
       const int bytes = left >= V ? kVecBytes : left > 0 ? static_cast<int>(left) * I : 0;
       cp_async16(&mine[32 * r], bytes > 0 ? in + e0 : in, bytes);
     } else {
-      Vec<I> v;
-      load_elements<I>(in, e0, n, v);
+      Chunk<I> v;
+      vmap::load_elements<I>(in, e0, n, v);
       mine[32 * r] = v.u;
     }
   }
@@ -267,7 +244,7 @@ undelta_kernel(const typename UInt<I>::T* __restrict__ in,
   A run = 0;  // the warp's sum over the rows before r
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    Vec<I> v;
+    Chunk<I> v;
     v.u = mine[32 * r];
     A s = 0;
 #pragma unroll
@@ -306,11 +283,11 @@ undelta_kernel(const typename UInt<I>::T* __restrict__ in,
   const A off = s_warp[warp];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    Vec<I> v;
+    Chunk<I> v;
     v.u = mine[32 * r];
 #pragma unroll
     for (int j = 0; j < V; ++j) v.e[j] = static_cast<T>(v.e[j] + off);
-    store<I, kVec>(out, seg + (r * 32 + lane) * V, n, v);
+    vmap::store<I, kVec>(out, seg + (r * 32 + lane) * V, n, v);
   }
   if (tile == 0) copy_tail_bytes(in, out, n * I, tail);
 
@@ -341,20 +318,11 @@ void launch_undelta(unsigned blocks, cudaStream_t s, const void* in, void* out,
 
 }  // namespace
 
-// in/out: n*itemsize + tail bytes, element-aligned.
+// in/out: n*itemsize + tail bytes, element-aligned, not overlapping.
 extern "C" int rt_delta(const void* in, void* out, int64_t n, int itemsize,
                         int64_t tail, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    RT_DISPATCH_ITEMSIZE(itemsize,
-      delta_kernel<I><<<blocks_for(n, kThreads), kThreads, 0, s>>>(
-          static_cast<const typename UInt<I>::T*>(in),
-          static_cast<typename UInt<I>::T*>(out), n));
-    RT_CHECK_LAUNCH();
-  }
-  const cudaError_t err = copy_tail(in, n * itemsize, out, n * itemsize, tail, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return vmap::launch<DeltaKernels>(in, out, n, itemsize, tail,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // in/out: n*itemsize + tail bytes, element-aligned; workspace: the calling

@@ -6,6 +6,11 @@ own first element, as ``core/precond.py`` defines it, and the inverse is one
 scan over the whole basket however large.  A CPU tensor goes to the plain
 version in ``ref``; a CUDA tensor always launches the kernel.
 
+The forward delta is one launch a call, its tail included: 16-byte
+vectors, each element's left neighbour from the previous lane
+(``csrc/vector_map.cuh``, shared with ``zigzag``).  Its ``out`` may not
+overlap its input.
+
 The inverse is one launch a call, its ragged tail included: a single-pass
 scan with decoupled look-back.  Its ticket and tile statuses live in a
 workspace kept for each (device, stream), zeroed when it is made or grown
@@ -22,7 +27,7 @@ from typing import Optional
 import torch
 
 from . import ref
-from ._build import (call, check_bytes, current_stream, launch, output,
+from ._build import (call, check_bytes, current_stream, map_elements, output,
                      require_aligned)
 
 __all__ = ["delta", "undelta", "TILE_BYTES", "tiles", "capacity",
@@ -83,14 +88,7 @@ def workspaces() -> dict[tuple[int, int], tuple[int, int]]:
 def delta(buf: torch.Tensor, itemsize: int,
           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[0] = x[0], out[i] = x[i] - x[i-1] mod 2**(8*itemsize); tail kept."""
-    check_bytes(buf, "delta")
-    n, tail = divmod(buf.numel(), itemsize)
-    dst = output(out, buf.numel(), buf, "delta")
-    if buf.device.type == "cpu":
-        return dst.copy_(ref.delta(buf, itemsize))
-    require_aligned(itemsize, "delta", buf, dst)
-    launch(delta, "rt_delta", buf, dst, n, itemsize, tail)
-    return dst
+    return map_elements(delta, "rt_delta", ref.delta, buf, itemsize, out)
 
 
 def undelta(buf: torch.Tensor, itemsize: int,

@@ -2,7 +2,7 @@
 the int8 quantizer's any-shape entry points.
 
 A spec names the stages the container records per branch (``"bitshuffle4"``,
-``"shuffle2"``, ``"delta8+shuffle8"``, ...; grammar of
+``"shuffle2"``, ``"delta8+shuffle8"``, ``"zigzag4"``, ...; grammar of
 ``core/precond.py``).  :func:`precondition` runs them forward over a basket
 held as a 1-D ``uint8`` tensor; :func:`unprecondition_into` runs them
 backwards and lands the last stage in the destination slice.  Each stage is
@@ -23,26 +23,30 @@ from .bitshuffle import bitshuffle, bitunshuffle
 from .byteshuffle import byteshuffle, byteunshuffle
 from .delta import delta, undelta
 from .qpack import qpack, qunpack
+from .zigzag import unzigzag, zigzag
 
 __all__ = ["precondition", "unprecondition_into", "quantize_int8",
            "dequantize_int8", "PRECOND_KERNELS", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 
-# the kernel wrappers, by the name chip_smoke.py reports them under: the six
-# preconditioners of the checkpoint path, then the serve path's quantizer
+# the kernel wrappers, by the name chip_smoke.py reports them under: the
+# eight preconditioners of the checkpoint path, then the serve path's
+# quantizer
 PRECOND_KERNELS = {fn.__name__: fn for fn in (
-    bitshuffle, bitunshuffle, byteshuffle, byteunshuffle, delta, undelta)}
+    bitshuffle, bitunshuffle, byteshuffle, byteunshuffle, delta, undelta,
+    zigzag, unzigzag)}
 KERNELS = {**PRECOND_KERNELS, "qpack": qpack, "qunpack": qunpack}
 
-_FORWARD = {"bitshuffle": bitshuffle, "shuffle": byteshuffle, "delta": delta}
+_FORWARD = {"bitshuffle": bitshuffle, "shuffle": byteshuffle, "delta": delta,
+            "zigzag": zigzag}
 
 
 def _stages(spec: str) -> list[tuple[str, int]]:
     stages = _parse(spec)
     for name, itemsize in stages:
         if name not in _FORWARD:
-            raise ValueError(f"precond stage {name!r} of {spec!r} has no "
-                             "GPU kernel (bitshuffle, shuffle, delta)")
+            raise ValueError(f"precond stage {name!r} of {spec!r} is unknown "
+                             f"(stages: {', '.join(_FORWARD)})")
         if itemsize not in (1, 2, 4, 8):
             raise ValueError(f"precond {spec!r}: itemsize must be 1, 2, 4 or 8")
     return stages
@@ -73,8 +77,10 @@ def unprecondition_into(spec: str, staged: torch.Tensor, out: torch.Tensor,
                                out=dst)
         elif name == "shuffle":
             cur = byteunshuffle(cur, itemsize, out=dst)
-        else:
+        elif name == "delta":
             cur = undelta(cur, itemsize, out=dst)
+        elif name == "zigzag":
+            cur = unzigzag(cur, itemsize, out=dst)
     if cur is not out:
         out.copy_(cur)
 

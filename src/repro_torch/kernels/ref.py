@@ -3,8 +3,8 @@
 Each preconditioner takes one basket's bytes as a 1-D ``uint8`` tensor and
 returns a new ``uint8`` tensor, with exactly the per-basket semantics of
 ``core/precond.py``: ``len % itemsize`` tail bytes pass through, bit planes
-are padded to ``ceil(N/8)`` bytes with zero bits, and delta restarts at the
-basket's first element, mod ``2**(8*itemsize)``.  ``qpack``/``qunpack`` are
+are padded to ``ceil(N/8)`` bytes with zero bits, delta restarts at the
+basket's first element, and delta and zigzag wrap mod ``2**(8*itemsize)``.  ``qpack``/``qunpack`` are
 the per-row int8 quantizer of ``repro/kernels/ref.py:qpack_ref`` and its
 inverse, rounding at the same steps.
 
@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["bitshuffle", "bitunshuffle", "byteshuffle", "byteunshuffle",
-           "delta", "undelta", "qpack", "qunpack"]
+           "delta", "undelta", "zigzag", "unzigzag", "qpack", "qunpack"]
 
 # wraparound arithmetic runs in the signed type of the same width: the bits
 # mod 2**k are those of the unsigned result, and torch covers signed types
@@ -107,6 +107,31 @@ def undelta(buf: torch.Tensor, itemsize: int) -> torch.Tensor:
     # cumsum of a narrow int type accumulates in int64; casting back keeps
     # the low bits, i.e. the sum mod 2**k
     out = torch.cumsum(v, 0).to(sdt)
+    return torch.cat([out.view(torch.uint8), tail])
+
+
+def zigzag(buf: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """(v << 1) ^ (v >> (8*itemsize - 1)) on the signed view: small
+    magnitudes of either sign become small unsigned values."""
+    n = buf.numel() // itemsize
+    body, tail = _split(buf, n * itemsize)
+    if n == 0:
+        return tail.clone()
+    v = _aligned(body, itemsize).view(_SIGNED[itemsize])
+    out = (v << 1) ^ (v >> (8 * itemsize - 1))
+    return torch.cat([out.view(torch.uint8), tail])
+
+
+def unzigzag(buf: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """(u >> 1) ^ -(u & 1), inverting :func:`zigzag`; ``u >> 1`` is the
+    unsigned shift, the signed one with the sign bit masked off."""
+    n = buf.numel() // itemsize
+    body, tail = _split(buf, n * itemsize)
+    if n == 0:
+        return tail.clone()
+    sdt = _SIGNED[itemsize]
+    v = _aligned(body, itemsize).view(sdt)
+    out = ((v >> 1) & torch.iinfo(sdt).max) ^ -(v & 1)
     return torch.cat([out.view(torch.uint8), tail])
 
 

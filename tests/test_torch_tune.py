@@ -3,8 +3,9 @@ sampler and the candidate matrix are the reference's, a tuned save with
 one candidate writes the reference's bytes, decisions the reference
 persisted steer the port's save to the reference's file, the manager
 reuses decisions across steps and re-tunes on drift, tuned token shards
-read in both packages, and a tuned preconditioner without a CUDA kernel
-raises for a CUDA tensor.
+read in both packages, and a tuned ``zigzag`` (a stage the reference runs
+on the host only) writes the reference's bytes from a CPU tensor, loads in
+both packages, and from a CUDA tensor writes the CPU tensor's bytes.
 
 Trial timings are measured, so decisions with several candidates may
 differ from run to run; the byte comparisons pin one candidate, or the
@@ -155,7 +156,9 @@ def test_selection_matches_reference():
 # tuned bytes against the reference's
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cand", _FAST + [("zlib", 4, "delta8+shuffle8")])
+@pytest.mark.parametrize("cand", _FAST + [("zlib", 4, "delta8+shuffle8"),
+                                  ("zlib", 1, "zigzag4"),
+                                  ("zlib", 1, "zigzag4+shuffle4")])
 @pytest.mark.parametrize("producers", [1, 2])
 def test_one_candidate_tuned_bytes_equal_reference(tmp_path, rng, cand, producers):
     """One producer: the reference's data bytes, TOC and decisions (less
@@ -309,16 +312,62 @@ def test_writer_objective_kwarg(tmp_path, rng):
 
 
 # ---------------------------------------------------------------------------
-# a preconditioner with no kernel
+# zigzag: tuned decisions only, on tensors of every device
 # ---------------------------------------------------------------------------
+
+_ZIGZAG = [("zlib", 1, "zigzag4")]
+
+
+def _signed_tree(rng):
+    """A signed int32 tensor of small magnitudes of both signs (zigzag's
+    case), an int16 one with the extremes, and float32 weights."""
+    ints = rng.integers(-50_000, 50_000, 300_000).astype(np.int32)
+    ints[:4] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, -1, 0]
+    return {"ids": ints,
+            "q": np.array([-32768, 32767, -1, 0, 1] * 9_001, np.int16),
+            "w": rng.standard_normal(70_000).astype(np.float32)}
+
+
+def test_tuned_zigzag_loads_in_both_packages(tmp_path, rng):
+    """The port's tuned ``zigzag4`` save of CPU tensors and the reference's
+    of the same values: the same data bytes and decisions, and each file
+    loads in the other package bitwise."""
+    tree = _signed_tree(rng)
+    port, ref = str(tmp_path / "port.bskt"), str(tmp_path / "ref.bskt")
+    save_pytree(port, {k: torch.from_numpy(v) for k, v in tree.items()},
+                tuner=tune.Tuner("min_bytes", candidates=_ZIGZAG))
+    jck = _jax_checkpoint()
+    jck.save_pytree(ref, _jax_tree(tree),
+                    tuner=jtune.Tuner("min_bytes", candidates=_ZIGZAG))
+    got, want = _data_and_toc(port), _data_and_toc(ref)
+    assert got == want
+    assert {d["precond"] for d in got[2].values()} == {"zigzag4"}
+    mine = load_pytree(ref, device="cpu")[0]
+    theirs = jck.load_pytree(port)[0]
+    for k, v in tree.items():
+        assert mine[k].numpy().tobytes() == v.tobytes(), k
+        assert np.asarray(theirs[k]).tobytes() == v.tobytes(), k
+
 
 @pytest.mark.cuda
 def test_tuned_zigzag_raises_for_a_cuda_tensor(tmp_path):
+    """It raised while zigzag had no kernel; now a tuned ``zigzag4`` save
+    of CUDA tensors runs the kernels and writes the CPU tensors' bytes
+    (which the test above holds to the reference's), and the restore on
+    the card is bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    x = torch.arange(-50_000, 50_000, dtype=torch.int32, device="cuda")
-    t = tune.Tuner("min_bytes", candidates=[("zlib", 1, "zigzag4")])
-    p = str(tmp_path / "z.bskt")
-    with pytest.raises(ValueError, match="no GPU kernel"):
-        save_pytree(p, {"x": x}, tuner=t)
-    assert t.decisions["x"].trial.precond == "zigzag4"
+    from repro_torch.kernels import ops
+    tree = _signed_tree(np.random.default_rng(0))
+    cpu = {k: torch.from_numpy(v) for k, v in tree.items()}
+    gpu = {k: v.cuda() for k, v in cpu.items()}
+    pc, pg = str(tmp_path / "cpu.bskt"), str(tmp_path / "gpu.bskt")
+    save_pytree(pc, cpu, tuner=tune.Tuner("min_bytes", candidates=_ZIGZAG))
+    ops.reset_launch_counts()
+    save_pytree(pg, gpu, tuner=tune.Tuner("min_bytes", candidates=_ZIGZAG))
+    assert ops.launch_counts()["zigzag"] > 0
+    assert _data_and_toc(pg) == _data_and_toc(pc)
+    back = load_pytree(pg, device="cuda")[0]
+    assert ops.launch_counts()["unzigzag"] > 0
+    for k, v in gpu.items():
+        assert torch.equal(back[k].view(torch.uint8), v.view(torch.uint8)), k
