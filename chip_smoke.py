@@ -51,7 +51,7 @@ runs, failing on the first error:
 4. the main path: qwen3-8b at full width, depth 1 (its tree checked
    against the published widths), trained by ``repro_torch.launch.train``
    (``build``/``run``) for 4 steps of 8 x 128 tokens with compressed
-   gradients, saved at step 4 (20.1 GB: f32 params and AdamW moments, a
+   gradients and ``remat="full"`` (the configs' default), saved at step 4 (20.1 GB: f32 params and AdamW moments, a
    bf16 residual); the step time, tokens/s, losses, peak memory and one
    profiled step beside the step's bound; the checkpoint restored through
    ``CheckpointManager`` bitwise against the live state, then the depth-1
@@ -62,7 +62,16 @@ runs, failing on the first error:
    ``CheckpointManager.restore(shardings=...)`` onto ``make_host_mesh()``
    ((1, 1) on cuda:0, NCCL) with the placements of ``param_shardings`` and
    ``opt_shardings``: every leaf a DTensor bitwise equal to the live
-   state, its wall beside phase 4's restore; then,
+   state, its wall beside phase 4's restore; then, as phase 4d, one step
+   on the live state under each ``remat`` ("none", "full", "dots"): the
+   loss and every gradient bitwise equal, and whole steps in turns, each
+   one's time and peak memory, and the depth-1 forward in bf16 with
+   ``rms_einsum``, then ``softmax_bf16_probs``, against the default path
+   (``VARIANT_RTOL``); as phase 4e, the trainer's token shards served by the
+   port's ``BasketServer`` on loopback and read through ``repro://`` URLs
+   for three train steps, each batch bitwise the local paths', the server
+   closed and no service thread left; and the checkpoint restored with
+   ``load_pytree(prefetch=4)``, bitwise, its wall beside phase 4's; then,
    as phase 4b with its own seconds, the same live state saved again by
    ``CheckpointManager(producers=4, tune=True)`` (the buffer merger and the
    codec tuner under the reference's ``checkpoint`` objective), restored
@@ -103,12 +112,17 @@ runs, failing on the first error:
    seamless-m4t-medium whole in float32, its prefill and decode against
    the teacher-forced forward (1e-4) and its bf16 cross cache against the
    encoder's projections; the reduced llama4-scout, jamba and seamless on
-   the card against the port on the CPU in float32 (1e-4);
+   the card against the port on the CPU in float32 (1e-4); one jamba mamba
+   layer at S = 4096 through forward and backward with its chunk steps
+   recomputed and without, gradients bitwise, the peak of each; and
+   ``mamba_bf16_y`` against the default path;
 10. the port's dry run: ``python -m repro_torch.launch.dryrun --arch
    qwen3-8b --shape all --mesh both`` in a child process (a fake world of
    256 or 512 ranks, no GPU), all six cells OK (an op DTensor cannot lay
    out fails its cell: the dry run has no fallback), each one's per-device
-   peak, roofline terms, mfu_vs_roofline and collectives printed; then phase 4's own cell
+   peak, roofline terms, mfu_vs_roofline and collectives printed, the
+   ``train_4k`` peaks beside those with every activation kept; one cell
+   with ``--perf rms_einsum,softmax_bf16_probs``; then phase 4's own cell
    (depth 1, 8 x 128, compressed gradients) on a (1, 1) fake world in
    another child, its argument bytes equal to the live state's and the
    batch's and its dot FLOPs equal to phase 4's FlopCounterMode count, its
@@ -119,17 +133,18 @@ Launch counters are zeroed just before phase 3 and read after it (the
 event tree's save and restore), zeroed before phase 3b and read after it
 (the zigzag kernels' path), zeroed again just before phase 4's
 trainer and read after its save and after its restore (the main path),
-around phase 4c's elastic restore, and before and after phase 4b's tuned
-save and its restore,
+around phase 4c's elastic restore and phase 4e's prefetching restore, and
+before and after phase 4b's tuned save and its restore,
 zeroed before phase 5's serve run and read after it (the rwkv6 serve
 path), and again around the timed runs of phases 6, 7 and 8 (the dense,
 hybrid and MoE serve paths, which launch none of the port's kernels).  A kernel's ``launches`` in the
-JSON record is the sum over phases 3, 3b, 4, 4c and 4b (the checkpoint
+JSON record is the sum over phases 3, 3b, 4, 4c, 4e and 4b (the checkpoint
 kernels) or phase 5 (qpack, qunpack); zigzag and unzigzag, which replace
 no Pallas kernel, carry ``"port_only": true``.  Each phase prints its seconds.  At the end
 the script stops multiprocessing's forkserver and resource tracker and
-lists its descendants from ``/proc``: if any is still alive after 10 s it
-prints them and exits 1 with no result.  The second-to-last line is the
+lists its descendants from ``/proc``: if any is still alive after 10 s, or
+``multiprocessing`` still has a child, or a thread of the remote service is
+alive, it prints them and exits 1 with no result.  The second-to-last line is the
 kernels' JSON record, the last line the device record.  Without a CUDA
 device it prints no result and exits 1.
 """
@@ -1777,7 +1792,7 @@ def phase_train(torch, np, tmp, ops, cfg, device="cuda"):
     checkpoint restored through CheckpointManager bitwise against the live
     state; the depth-1 model on the restored weights bit-equal to the live
     weights'; one profiled step, and one under ``FlopCounterMode``.  The
-    checkpoint stays in ``workdir`` for phase 4c."""
+    checkpoint and the shards stay in ``workdir`` for phases 4c and 4e."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import _flatten_with_paths
     from repro_torch.launch import train as launch
@@ -1936,9 +1951,202 @@ def phase_elastic_restore(torch, ops, cfg, live, static, device="cuda"):
         f"in this call; launches: bitunshuffle {counts['bitunshuffle']}, "
         f"byteunshuffle {counts['byteunshuffle']}")
     del restored, got
-    shutil.rmtree(static["workdir"])
     return {"wall_s": wall_s, "plain_restore_s": static["restore_s"],
             "leaves": n_leaves, "mesh": str(mesh), "launches": counts}, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: remat and the layers' variants on the trainer's live state
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "full", "dots")
+VARIANT_RTOL = 3e-2               # the CPU tests' bf16 bound (test_torch_dense.py)
+
+
+def _train_batch(torch, np, cfg, seed: int):
+    """A batch of the trainer's shape (8 x 128) on the card."""
+    from repro_torch.launch import train as launch
+    tok = np.random.default_rng(seed).integers(
+        2, cfg.vocab, (8, 129)).astype(np.int32)
+    return launch.build_batch(cfg, {"tokens": tok[:, :-1], "targets": tok[:, 1:]},
+                              1, "cuda")
+
+
+def _loss_grads(torch, model, params, batch):
+    """The train step's loss and gradients: the float32 leaves cast to bf16
+    for the model, the gradients through the cast."""
+    from repro_torch.train.optim import tree_leaves, tree_map
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    flat = tree_leaves(leaves)
+    loss, _ = model.loss(tree_map(lambda p: p.to(torch.bfloat16), leaves), batch)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def phase_remat(torch, np, cfg, live):
+    """(a) The trainer's step on phase 4's live state with ``remat``
+    "none", "full" and "dots": the loss and every gradient bitwise equal
+    (deterministic algorithms on, so the embedding's backward sorts instead
+    of adding with atomics), then whole train steps in turns, each mode's
+    wall and peak memory.  (d) The layers' variants at full width: the
+    depth-1 forward in bf16 with ``rms_einsum``, then
+    ``softmax_bf16_probs``, against the default path."""
+    import dataclasses
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.models import Model, layers
+    from repro_torch.train import make_train_step
+    batch = _train_batch(torch, np, cfg, 4)
+    models = {r: Model(dataclasses.replace(cfg, remat=r)) for r in REMAT_MODES}
+    names = list(_flatten_with_paths(live.params))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        base_loss, base = _loss_grads(torch, models["none"], live.params, batch)
+        for r in ("full", "dots"):
+            loss, grads = _loss_grads(torch, models[r], live.params, batch)
+            assert same_bits(loss, base_loss), (r, loss.item(), base_loss.item())
+            differ = [n for n, g, w in zip(names, grads, base) if not same_bits(g, w)]
+            assert not differ, f"remat={r}: gradients differ from none's: {differ}"
+            del grads
+        del base
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"phase 4d: loss {base_loss.item():.6f} and all {len(names)} gradients "
+        f"bitwise equal under remat none, full and dots")
+    steps = {r: make_train_step(models[r], peak_lr=3e-4, warmup=5, total_steps=4,
+                                compress_grads=True) for r in REMAT_MODES}
+    wall = {r: [] for r in REMAT_MODES}
+    peak = {}
+    for rnd in range(3):                   # round 0 warms each mode up
+        for r in REMAT_MODES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            new, metrics = steps[r](live, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            if rnd:
+                wall[r].append((time.perf_counter() - t0) * 1e3)
+            if rnd == 1:
+                peak[r] = torch.cuda.max_memory_allocated() / 1e9
+            del new, metrics
+    step_ms = {r: min(v) for r, v in wall.items()}
+    log(f"phase 4d: train step ms by remat (best of 2, in turns): {step_ms} "
+        f"(all: {wall}); peak device memory GB during the step: {peak}")
+    p16 = _to(torch, live.params, torch.bfloat16)
+    variants = {}
+    with torch.no_grad():
+        want, _ = models["none"].forward(p16, {"tokens": batch["tokens"]})
+        for flag in ("rms_einsum", "softmax_bf16_probs"):
+            layers.PERF_FLAGS[flag] = True
+            try:
+                got, _ = models["none"].forward(p16, {"tokens": batch["tokens"]})
+            finally:
+                layers.PERF_FLAGS[flag] = False
+            rel = _rel(torch, got, want)
+            assert torch.isfinite(got).all() and rel < VARIANT_RTOL, (flag, rel)
+            variants[flag] = {"rel_err": rel, "bits_equal": same_bits(got, want)}
+    log(f"phase 4d: the depth-1 forward in bf16 (8 x 128) with each variant "
+        f"against the default path: {variants} (bound {VARIANT_RTOL})")
+    del p16, want, got
+    torch.cuda.empty_cache()
+    return {"loss": base_loss.item(), "grads_bitwise": len(names),
+            "step_ms": step_ms, "step_ms_all": wall, "peak_gb": peak,
+            "variants": variants}
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: token shards over repro://, and the prefetching restore
+# ---------------------------------------------------------------------------
+
+def _service_threads() -> list:
+    """Live threads of the remote service: the server's, its request
+    handlers', the client's fetchers and the scrubber's."""
+    import threading
+    return [t.name for t in threading.enumerate() if t.is_alive() and (
+        t.name.startswith(("repro-bserve", "repro-remote", "repro-scrubber"))
+        or "process_request" in t.name)]
+
+
+def phase_remote(torch, np, ops, cfg, live, static):
+    """Phase 4's token shards served by the port's ``BasketServer`` on
+    loopback: three train steps on batches read through ``repro://`` URLs,
+    each batch bitwise that of the local paths, the server closed in a
+    ``finally`` and no service thread left.  Then phase 4's checkpoint
+    restored with ``load_pytree(prefetch=4)`` (the codec stage of the next
+    four baskets on the engine's threads), bitwise against the live state,
+    its wall beside phase 4's ``prefetch=0`` restore.  Returns (summary,
+    launch counts of the restore)."""
+    import glob
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as launch
+    from repro_torch.models import Model
+    from repro_torch.remote import BasketServer
+    from repro_torch.train import make_train_step
+    data = os.path.join(static["workdir"], "data")
+    shards = sorted(glob.glob(os.path.join(data, "*.bskt")))
+    assert shards, data
+    step_fn = make_train_step(Model(cfg), peak_lr=3e-4, warmup=5, total_steps=4,
+                              compress_grads=True)
+    losses = []
+    srv = BasketServer(data, workers=2)
+    try:
+        srv.start()
+        urls = [srv.url(os.path.basename(p)) for p in shards]
+        remote = TokenPipeline(urls, batch=8, seq_len=128)
+        local = TokenPipeline(shards, batch=8, seq_len=128)
+        try:
+            state = live
+            for _ in range(3):
+                br, bl = next(remote), next(local)
+                assert sorted(br) == sorted(bl)
+                for k in br:
+                    assert br[k].dtype == bl[k].dtype and np.array_equal(br[k], bl[k]), k
+                state, m = step_fn(state, launch.build_batch(cfg, br, 1, "cuda"))
+                losses.append(float(m["loss"]))
+            served = srv.stats["baskets_served"]
+            del state
+        finally:
+            remote.close()
+            local.close()
+    finally:
+        srv.close()
+    assert all(np.isfinite(v) for v in losses), losses
+    deadline = time.monotonic() + 10.0
+    while _service_threads() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not _service_threads(), _service_threads()
+    log(f"phase 4e: {len(shards)} token shards over repro:// from a BasketServer on "
+        f"loopback: 3 train steps, each batch bitwise the local paths'; losses "
+        f"{losses}; baskets served {served}; server closed, no service thread left")
+    tree = {"params": live.params, "opt": live.opt, "step": live.step, "err": live.err}
+    ckpt = os.path.join(static["workdir"], "ckpt", "ckpt-00000004.bskt")
+    ops.reset_launch_counts()
+    stage_seconds()
+    t0 = time.perf_counter()
+    restored, _ = load_pytree(ckpt, template=tree, prefetch=4, heal="auto",
+                              device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    stages = stage_seconds()
+    back = _flatten_with_paths(restored)
+    flat = _flatten_with_paths(tree)
+    for k, t in flat.items():
+        assert (back[k] is None) if t is None else same_bits(back[k], t), k
+    for name in ("bitunshuffle", "byteunshuffle"):
+        assert counts[name] > 0, f"{name} not launched on the prefetching restore"
+    log(f"phase 4e: prefetching restore (prefetch=4) of {static['gb']:.2f} GB "
+        f"{wall_s:.3f} s against phase 4's prefetch=0 restore "
+        f"{static['restore_s']:.3f} s, bitwise equal; stages (s): {stages}; "
+        f"launches: {counts}")
+    del restored, back
+    torch.cuda.empty_cache()
+    shutil.rmtree(static["workdir"])     # the last phase to read it
+    return {"remote_losses": losses, "shards": len(shards), "baskets_served": served,
+            "prefetch_restore_s": wall_s, "plain_restore_s": static["restore_s"],
+            "prefetch_stages_s": stages, "prefetch_launches": counts}, counts
 
 
 def run_example(name: str, argv: list) -> int:
@@ -2727,6 +2935,76 @@ def _mamba_full_vs_steps(torch):
     return out
 
 
+def _mamba_remat(torch):
+    """One jamba mamba layer at full width (d_inner 8192, state 16) through
+    forward and backward at S = 4096 (bf16, batch 1), with its chunk steps
+    recomputed in the backward (the port's path) and without (every
+    chunk's (L, B, d_inner, d_state) tensors kept): the gradients of the
+    input and every weight bitwise equal, the peak memory of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.specs import init_params
+    from repro_torch.train.optim import tree_leaves, tree_map
+    cfg = get_config("jamba-v0.1-52b")
+    p = init_params(ssm.mamba_specs(cfg), torch.Generator(device="cuda").manual_seed(9))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = (torch.randn((1, 4096, cfg.d_model), generator=gen, device="cuda") * 0.5
+         ).to(torch.bfloat16)
+    dy = torch.randn((1, 4096, cfg.d_model), generator=gen, device="cuda"
+                     ).to(torch.bfloat16)
+
+    def run():
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), p)
+        xx = x.detach().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = ssm.mamba(leaves, xx, cfg)
+        grads = torch.autograd.grad(out, [xx] + tree_leaves(leaves), grad_outputs=dy)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, \
+            (torch.cuda.max_memory_allocated() - held) / 1e9, out.detach(), grads
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    plain = ssm.recompute
+    try:
+        ms, peak, out, grads = run()
+        ssm.recompute = lambda fn, *args, context_fn=None: fn(*args)
+        ms_kept, peak_kept, out_kept, grads_kept = run()
+    finally:
+        ssm.recompute = plain
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(out).all() and same_bits(out, out_kept)
+    differ = [i for i, (a, b) in enumerate(zip(grads, grads_kept)) if not same_bits(a, b)]
+    assert not differ, f"mamba chunk recompute: gradients {differ} differ"
+    return {"peak_gb_recomputed": peak, "peak_gb_kept": peak_kept,
+            "ms_recomputed": ms, "ms_kept": ms_kept, "grads_bitwise": len(grads)}
+
+
+def _mamba_bf16_y(torch):
+    """The ``mamba_bf16_y`` variant at full width (one jamba mamba layer,
+    bf16, 2 x 512) against the default path: within the CPU tests' bf16
+    bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.specs import init_params
+    cfg = get_config("jamba-v0.1-52b")
+    p = init_params(ssm.mamba_specs(cfg), torch.Generator(device="cuda").manual_seed(9))
+    x = (torch.randn((2, 512, cfg.d_model), generator=torch.Generator(device="cuda")
+                     .manual_seed(7), device="cuda") * 0.5).to(torch.bfloat16)
+    with torch.no_grad():
+        want = ssm.mamba(p, x, cfg)
+        ssm.PERF_FLAGS["mamba_bf16_y"] = True
+        try:
+            got = ssm.mamba(p, x, cfg)
+        finally:
+            ssm.PERF_FLAGS["mamba_bf16_y"] = False
+    rel = _rel(torch, got, want)
+    assert torch.isfinite(got).all() and rel < VARIANT_RTOL, rel
+    return {"rel_err": rel, "bits_equal": same_bits(got, want)}
+
+
 def _drawn_weights(torch, model, generator):
     """float32 weights drawn as the CPU tests draw them, on ``generator``'s
     device: normal leaves at scale / sqrt(d_model), "ones" leaves their
@@ -2848,6 +3126,8 @@ def phase_family_checks(torch):
     out = {}
     for name, check in (("moe_vs_expert_loop", _moe_vs_loop),
                         ("mamba_full_vs_steps", _mamba_full_vs_steps),
+                        ("mamba_chunk_remat_s4096", _mamba_remat),
+                        ("mamba_bf16_y_variant", _mamba_bf16_y),
                         ("encdec_vs_forward", _encdec_checks),
                         ("reduced_card_vs_cpu_f32", _reduced_families_agree)):
         t0 = time.perf_counter()
@@ -2863,6 +3143,14 @@ def phase_family_checks(torch):
 
 DRYRUN_ARGS = ["--arch", "qwen3-8b", "--shape", "all", "--mesh", "both"]
 DRYRUN_CELLS = 6                   # 3 shapes x the (16, 16) and (2, 16, 16) meshes
+# the layers' variants on: one cell (the prefill's, whose q_chunk
+# probabilities the bf16 variant stores; a forward traces fastest)
+DRYRUN_PERF_ARGS = ["--arch", "qwen3-8b", "--shape", "prefill_32k", "--mesh", "single",
+                    "--perf", "rms_einsum,softmax_bf16_probs"]
+# train_4k's per-device peak (GiB) with every activation kept, from this
+# phase on an H100 before the port honoured remat, beside this run's
+# under remat="full"
+NO_REMAT_PEAK_GIB = {"train_4k 16x16": 172.69, "train_4k 2x16x16": 185.69}
 # the trainer's own cell: phase 4's configuration on a (1, 1) fake world
 TRAINER_CELL = """
 import dataclasses, json
@@ -2903,13 +3191,19 @@ def phase_dryrun(torch, tmp, train):
     measured peak and step."""
     from repro_torch.launch.dryrun import H100
     out_dir = os.path.join(tmp, "dryrun")
-    # both children at once: neither needs the card, and each is one process
+    perf_dir = os.path.join(tmp, "dryrun-perf")
+    # the children at once: none needs the card, and each is one process
     cell = _start_child([sys.executable, "-c", TRAINER_CELL])
+    perf = _start_child([sys.executable, "-m", "repro_torch.launch.dryrun"]
+                        + DRYRUN_PERF_ARGS + ["--out", perf_dir])
     try:
         r, wall = _run_child([sys.executable, "-m", "repro_torch.launch.dryrun"]
                              + DRYRUN_ARGS + ["--out", out_dir], timeout=600)
     finally:
-        r2, wall2 = _finish_child(cell, timeout=300)
+        try:
+            r2, wall2 = _finish_child(cell, timeout=300)
+        finally:
+            r3, wall3 = _finish_child(perf, timeout=300)
     assert r.returncode == 0, (r.returncode, r.stdout[-3000:], r.stderr[-3000:])
     oks = [line for line in r.stdout.splitlines() if line.startswith("OK ")]
     assert len(oks) == DRYRUN_CELLS and "all dry-run cells passed" in r.stdout, \
@@ -2931,6 +3225,25 @@ def phase_dryrun(torch, tmp, train):
             f"{rec['bottleneck']}; mfu_vs_roofline {rec['mfu_vs_roofline']:.4f}; "
             f"{rec['collectives']['total']['count']:.0f} collectives")
     assert len(cells) == DRYRUN_CELLS, sorted(cells)
+    for key, before in NO_REMAT_PEAK_GIB.items():
+        log(f"phase 10: {key} peak under remat=full {cells[key]['peak_gib']:.2f} GiB "
+            f"a device against {before:.2f} GiB with every activation kept")
+    assert r3.returncode == 0 and "all dry-run cells passed" in r3.stdout, \
+        (r3.returncode, r3.stdout[-3000:], r3.stderr[-3000:])
+    (fn,) = os.listdir(perf_dir)
+    with open(os.path.join(perf_dir, fn)) as fh:
+        prec = json.load(fh)
+    pt = {k: v * 1e3 for k, v in prec["roofline_s"].items()}
+    key = f"{prec['shape']} {prec['mesh']}"
+    perf_cell = {"cell": key, "peak_gib": prec["per_device"]["peak_bytes"] / 2 ** 30,
+                 "roofline_ms": pt, "mfu_vs_roofline": prec["mfu_vs_roofline"],
+                 "trace_s": prec["lower_s"], "wall_s": wall3}
+    log(f"phase 10: {key} with --perf rms_einsum,softmax_bf16_probs: peak "
+        f"{perf_cell['peak_gib']:.2f} GiB (without: {cells[key]['peak_gib']:.2f}); "
+        f"roofline compute {pt['compute']:.2f} ms, memory {pt['memory']:.2f} ms "
+        f"(without: {cells[key]['roofline_ms']['memory']:.2f}), collective "
+        f"{pt['collective']:.2f} ms; mfu_vs_roofline {prec['mfu_vs_roofline']:.4f} "
+        f"({wall3:.1f} s)")
     assert r2.returncode == 0, (r2.returncode, r2.stderr[-3000:])
     rec = json.loads(next(line for line in r2.stdout.splitlines()
                           if line.startswith("RECORD "))[len("RECORD "):])
@@ -2950,7 +3263,7 @@ def phase_dryrun(torch, tmp, train):
         f"copy {rates['copy_gb_s']:.1f} GB/s (events) against the data sheet's "
         f"{H100['flops_bf16'] / 1e12:.1f} TFLOP/s and {H100['hbm_bytes_per_s'] / 1e9:.0f} "
         f"GB/s the dry run divides by; dry run {wall:.1f} s, trainer's cell {wall2:.1f} s")
-    return {"cells": cells, "trainer_cell": {
+    return {"cells": cells, "perf_cell": perf_cell, "trainer_cell": {
         "per_device": pd, "roofline_ms": t, "bottleneck": rec["bottleneck"],
         "measured_step_ms": train["step_ms"], "measured_peak_gb": train["peak_gb"]},
         "card_rates": rates, "dryrun_s": wall, "trainer_cell_s": wall2}
@@ -3034,6 +3347,16 @@ def main() -> int:
         phase_s["phase 4c"] = time.perf_counter() - t4c
         mark[0] += phase_s["phase 4c"]         # phase 4's seconds leave 4c out
         log(f"phase 4c: {phase_s['phase 4c']:.1f} s")
+        t4d = time.perf_counter()
+        remat = phase_remat(torch, np, cfg4, live)
+        phase_s["phase 4d"] = time.perf_counter() - t4d
+        mark[0] += phase_s["phase 4d"]         # phase 4's seconds leave 4d out
+        log(f"phase 4d: {phase_s['phase 4d']:.1f} s")
+        t4e = time.perf_counter()
+        remote, remote_counts = phase_remote(torch, np, ops, cfg4, live, train)
+        phase_s["phase 4e"] = time.perf_counter() - t4e
+        mark[0] += phase_s["phase 4e"]         # phase 4's seconds leave 4e out
+        log(f"phase 4e: {phase_s['phase 4e']:.1f} s")
         t4b = time.perf_counter()
         tuned, tuned_counts = phase_tuned_save(torch, np, tmp, ops, cfg4, live, train)
         del live
@@ -3049,7 +3372,7 @@ def main() -> int:
     # the restore undoes every delta of the save: one undelta a basket
     assert counts["undelta"] == counts["delta"] > 0, counts
     counts = {k: counts[k] + zz_counts[k] + train_counts[k] + elastic_counts[k]
-              + tuned_counts[k] for k in counts}
+              + remote_counts[k] + tuned_counts[k] for k in counts}
     for name in ops.PRECOND_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the checkpoint path"
     import torch.distributed as dist
@@ -3084,6 +3407,8 @@ def main() -> int:
     log(json.dumps({"phase3_events": events, "phase3b_zigzag_save": zigzag,
                     "phase4_train_qwen3_8b_depth1": train,
                     "phase4b_tuned_save": tuned, "phase4c_elastic_restore": elastic,
+                    "phase4d_remat_and_variants": remat,
+                    "phase4e_remote_shards_and_prefetch_restore": remote,
                     "precond_share": share, "phase5_serve_rwkv6_1_6b": serve,
                     "phase6_serve_qwen3_8b": dense,
                     "phase7_serve_jamba_v0_1_52b_1_group": families["jamba-v0.1-52b"],
@@ -3095,6 +3420,11 @@ def main() -> int:
     if left:
         for pid, cmd in left:
             log(f"still running: pid {pid}: {cmd}")
+        return 1
+    import multiprocessing
+    kids, threads = multiprocessing.active_children(), _service_threads()
+    if kids or threads:
+        log(f"still running: children {kids}, service threads {threads}")
         return 1
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,10 @@ calls the save with the same tree), so the container bytes do not depend
 on the layout.  ``load_pytree(shardings=)`` is the elastic restore: each
 branch decodes whole on the load's device, as any branch does (a mesh of
 another device type raises), and each rank keeps its own shard of it as a DTensor (no collective), the
-whole tensor dropped as the branch is done.  Not ported yet (ROADMAP.md
-A9): ``load_pytree(prefetch>0)``.
+whole tensor dropped as the branch is done.  ``load_pytree(prefetch=k)``
+runs the codec stage of the next ``k`` baskets, across branch boundaries,
+on the BasketFile's engine threads while the current branch's inverse
+preconditioners and checksums run; the inverse stays on the device.
 """
 
 from __future__ import annotations
@@ -84,11 +86,6 @@ _NP_DTYPE = {
 }
 _TORCH_DTYPE = {np.dtype(v).str: k for k, v in _NP_DTYPE.items()
                 if k is not torch.bfloat16}
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported to repro_torch yet: "
-                               f"ROADMAP.md {item}")
 
 
 def _flatten_with_paths(tree) -> dict[str, Any]:
@@ -435,11 +432,51 @@ def save_pytree(path: str, tree, profile: str = "checkpoint",
 # baskets -> tensor (inverse preconditioner on the destination's device)
 # ---------------------------------------------------------------------------
 
+class _StagedAhead:
+    """The codec stage of the restore, run ahead on the BasketFile's
+    engine threads (``load_pytree(prefetch=k)``): asking for basket ``i`` of
+    a branch schedules every basket up to ``k`` past it in restore order,
+    across branch boundaries, so the next branch decompresses while this
+    one's inverse preconditioners and checksums run.  A future holds the
+    preconditioned bytes, or the decode error for the caller to heal."""
+
+    def __init__(self, f: BasketFile, names: list[str], ahead: int):
+        self._f = f
+        self._order = [(n, i) for n in names
+                       for i in range(len(f.branches[n]["baskets"]))]
+        self._pos = {key: p for p, key in enumerate(self._order)}
+        self._ahead = ahead
+        self._next = 0
+        self._futs: dict[tuple[str, int], Any] = {}
+        self._lock = threading.Lock()
+
+    def _stage(self, name: str, i: int):
+        entry = self._f.branches[name]
+        meta = BasketMeta.from_json(entry["baskets"][i]["meta"])
+        with obs.histogram("ckpt.restore.codec_s").time():
+            return decompress_staged(self._f.read_basket_payload(name, i),
+                                     meta, self._f._dictionary(entry))
+
+    def take(self, name: str, i: int):
+        """The preconditioned bytes of basket ``i`` (raises its decode
+        error); each basket is taken once."""
+        with self._lock:
+            stop = min(self._pos[(name, i)] + self._ahead + 1, len(self._order))
+            while self._next < stop:
+                key = self._order[self._next]
+                self._futs[key] = self._f._engine.submit(self._stage, *key)
+                self._next += 1
+            fut = self._futs.pop((name, i))
+        return fut.result()
+
+
 def _read_tensor(f: BasketFile, name: str, bf16: bool, device: torch.device,
-                 workers: int) -> torch.Tensor:
+                 workers: int, ahead: Optional[_StagedAhead] = None
+                 ) -> torch.Tensor:
     """Decode one branch straight into a tensor on ``device``: the codec on
-    the host, the inverse preconditioner on the device, then every basket's
-    raw adler32 checked on the host."""
+    the host (from ``ahead`` when the restore prefetches), the inverse
+    preconditioner on the device, then every basket's raw adler32 checked
+    on the host."""
     entry = f.branches[name]
     dtype = torch.bfloat16 if bf16 else _TORCH_DTYPE[np.dtype(entry["dtype"]).str]
     out = torch.empty(tuple(entry["shape"]), dtype=dtype, device=device)
@@ -471,9 +508,12 @@ def _read_tensor(f: BasketFile, name: str, bf16: bool, device: torch.device,
     def decode(i: int) -> None:
         meta = metas[i]
         try:
-            with obs.histogram("ckpt.restore.codec_s").time():
-                staged = decompress_staged(f.read_basket_payload(name, i),
-                                           meta, dictionary)
+            if ahead is not None:
+                staged = ahead.take(name, i)
+            else:
+                with obs.histogram("ckpt.restore.codec_s").time():
+                    staged = decompress_staged(f.read_basket_payload(name, i),
+                                               meta, dictionary)
         except _DECODE_ERRORS as e:
             healed(i, e)
             return
@@ -517,11 +557,12 @@ def load_pytree(path: str, template=None, shardings=None, workers: int = 4,
     rank's shard; the whole tensor is dropped before the next branch
     decodes.
 
+    ``prefetch=k``: the codec stage of the next ``k`` baskets runs ahead on
+    the BasketFile's engine threads (:class:`_StagedAhead`); the tensors are
+    those of ``prefetch=0``, bit for bit.
+
     ``heal="auto"``: a basket that fails its checksum is reconstructed from
     the ``<path>.parity`` sidecar, as in the reference."""
-    if prefetch:
-        # the staged restore decodes every basket itself (_read_tensor)
-        raise _not_ported("load_pytree(prefetch>0)", "A9, 'prefetching restore'")
     device = _resolve_device(device)
     flat_s = _flatten_with_paths(shardings) if shardings is not None else {}
     for name, sh in flat_s.items():
@@ -537,13 +578,14 @@ def load_pytree(path: str, template=None, shardings=None, workers: int = 4,
                        heal=heal) as f:
         meta = json.loads(bytes(f.read_branch("__meta__")).decode())
         bf16 = set(meta.get("bf16", []))
+        names = [n for n in f.branch_names() if n != "__meta__"]
+        # the meta read made the engine the prefetching reader schedules on
+        ahead = _StagedAhead(f, names, prefetch) if prefetch else None
         flat = {}
-        for name in f.branch_names():
-            if name == "__meta__":
-                continue
+        for name in names:
             sh = flat_s.get(name)
             with obs.trace.span("ckpt.read_branch", cat="ckpt", branch=name):
-                t = _read_tensor(f, name, name in bf16, device, workers)
+                t = _read_tensor(f, name, name in bf16, device, workers, ahead)
                 flat[name] = t if sh is None else shard_tensor(t, sh)
                 del t
     obs.histogram("ckpt.load_s").observe(time.perf_counter() - t0)

@@ -10,9 +10,10 @@ Fault-tolerance / scale properties:
   * **deterministic host sharding** — shard files are assigned
     round-robin by (host_id, n_hosts); every host sees a disjoint stream,
     and re-running with the same ids reproduces it exactly;
-  * **remote shards** — the reference's ``repro://host:port/file.bskt``
-    URLs need ``remote``, which is not ported yet: they raise
-    ``NotImplementedError`` (ROADMAP A9);
+  * **remote shards** — a path may be a ``repro://host:port/file.bskt``
+    URL served by ``repro_torch.remote.BasketServer``; the prefetching reader
+    then pulls baskets over vectored wire requests (optionally transcoded
+    decode-cheap) instead of local preads, same bytes either way;
   * **exact restart cursor** — the pipeline state is (epoch, file index,
     window index); ``state_dict()``/``load_state_dict()`` round-trip it, so
     a restore resumes mid-shard with no token skew (basket index = restart
@@ -119,7 +120,8 @@ class TokenPipeline:
         """Decompress one shard through the prefetching reader: all baskets
         scheduled on the shared engine, joined in entry order (the
         simultaneous-read-and-decompress hot path).  ``repro://`` shard
-        URLs raise: ``remote`` is not ported yet."""
+        URLs open a ``RemoteBasketFile`` instead — the same reader then
+        fetches baskets as vectored wire requests."""
         if self._stop.is_set():
             # a straggler producer must not recreate the engine that
             # _shutdown just closed (it would leak); die quietly instead
@@ -128,10 +130,10 @@ class TokenPipeline:
             self._io_engine = CompressionEngine(self.decomp_workers)
         remote = path.startswith("repro://")
         if remote:
-            raise NotImplementedError(
-                f"remote shards ({path}) are not ported yet: ROADMAP.md A9, "
-                "'remote in the port'")
-        bfile = BasketFile(path)
+            from repro_torch.remote import RemoteBasketFile
+            bfile = RemoteBasketFile(path)
+        else:
+            bfile = BasketFile(path)
         try:
             reader = PrefetchReader(bfile, "tokens",
                                     ahead=self.prefetch_baskets,

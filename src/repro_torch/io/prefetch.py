@@ -25,8 +25,8 @@ baskets from the old file with fresh reads of the new one.
 
 Remote sources: any object exposing ``branches``/``_dictionary`` plus a
 ``submit_baskets(branch, idxs) -> list[Future[bytes]]`` method (e.g.
-the reference's ``RemoteBasketFile``; ``remote`` is not ported yet,
-ROADMAP A9) can sit where the local ``BasketFile`` does.  Scheduling batches every uncached index of a prefetch/acquire wave
+``repro_torch.remote.RemoteBasketFile``) can sit where the local ``BasketFile``
+does.  Scheduling batches every uncached index of a prefetch/acquire wave
 into ONE ``submit_baskets`` call, which the remote client turns into one
 vectored wire request — the read-ahead that makes a high-latency link
 look local.

@@ -77,9 +77,9 @@ PERF_KEYS = ("rms_einsum", "softmax_bf16_probs", "mamba_bf16_y", "bf16_grads",
 
 
 def set_perf_flags(names: list[str]) -> dict:
-    """Toggle the §Perf variants; returns train_kwargs additions.  The port
-    has none of the layers' variants yet: a model that meets one raises
-    ``NotImplementedError`` naming ROADMAP A12."""
+    """Toggle the §Perf variants (the layers' ``rms_einsum`` and
+    ``softmax_bf16_probs``, mamba's ``mamba_bf16_y``, rwkv's
+    ``compressed_tp``); returns train_kwargs additions (``bf16_grads``)."""
     from ..models import layers as L, rwkv as R, ssm as S
     L.PERF_FLAGS["rms_einsum"] = "rms_einsum" in names
     L.PERF_FLAGS["softmax_bf16_probs"] = "softmax_bf16_probs" in names
@@ -171,6 +171,7 @@ def trace_cell(cell, mesh) -> dict:
     trace_s = time.monotonic() - t0
     arg_b, out_b = _bytes(arg_t), _bytes(out_t)
     return {"trace_s": trace_s, "cost": cost.cost, "dot_flops": cost.dot_flops,
+            "dot_flops_by_op": cost.dot_flops_by_op,
             "arg_bytes": arg_b, "out_bytes": out_b,
             "peak_bytes": cost.peak_bytes,
             "temp_bytes": max(cost.peak_bytes - arg_b - out_b + alias, 0)}

@@ -130,6 +130,7 @@ class CostMode(TorchDispatchMode):
         super().__init__()
         self.cost = Cost()
         self.dot_flops = 0.0          # the matmuls' share of cost.flops
+        self.dot_flops_by_op: dict = {}   # ... by op: mm, bmm, addmm, ...
         self.live_bytes = 0
         self.peak_bytes = 0
         self._known: dict = {}        # id(tensor) -> weakref
@@ -224,6 +225,7 @@ class CostMode(TorchDispatchMode):
         if name in _MATMULS:
             f = _matmul_flops(name, args, outs[0])
             self.dot_flops += f
+            self.dot_flops_by_op[name] = self.dot_flops_by_op.get(name, 0.0) + f
             self.cost.flops += f
         elif name == "convolution":
             self.cost.flops += 2.0 * outs[0].numel()

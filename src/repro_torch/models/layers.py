@@ -17,6 +17,13 @@ explicit one, in float32 over float32 scores: a fully masked row gives
 zeros (``F.scaled_dot_product_attention`` gives NaN) and the softcap sits
 between the scores and the mask.  The scores are float32 products, so they
 need TF32 off, PyTorch's default (``torch.backends.cuda.matmul.allow_tf32``).
+Each query chunk's scores and probabilities are recomputed in the backward
+(:func:`recompute`, the reference's ``jax.checkpoint`` of its scan step),
+so no (chunk, T) tensor is kept for it.
+
+The reference's §Perf variants (``PERF_FLAGS``, off by default) take bf16
+operands to float32 sums: products of bf16 values are exact in float32, so
+the port upcasts the operands and multiplies in float32.
 """
 
 from __future__ import annotations
@@ -25,38 +32,52 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..parallel.actctx import constrain, tp_size, write_slots
 from ..parallel.meshed import attention_core
 from .specs import ParamSpec
 
 __all__ = ["rms_norm", "norm_specs", "rope", "attn_specs", "attention",
-           "ffn_specs", "ffn", "not_ported"]
+           "ffn_specs", "ffn", "recompute"]
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def recompute(fn, *args, context_fn=None):
+    """``fn(*args)`` with its activations dropped after the forward and
+    recomputed in the backward (the reference's ``jax.checkpoint``);
+    ``context_fn`` selects what is saved instead (a selective-checkpoint
+    policy).  A plain call where no gradient is recorded.  The model draws
+    no random numbers, so no RNG state is stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def norm_specs(d_model: int) -> dict:
     return {"scale": ParamSpec((d_model,), ("embed",), init="ones")}
 
 
-# the reference's §Perf variants (off by default there too); the port has
-# the baseline numerics only
+# the reference's §Perf variants, off by default as there: rms_norm's
+# variance from bf16 products with float32 sums, the result x times the
+# inverse in bf16; the attention products on bf16 operands with float32
+# sums and the probabilities stored in bf16
 PERF_FLAGS = {"rms_einsum": False, "softmax_bf16_probs": False}
 
 
 def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6,
              zero_centered: bool = False) -> torch.Tensor:
-    """RMSNorm with float32 statistics over a float32 copy of ``x``."""
-    if PERF_FLAGS["rms_einsum"]:
-        raise not_ported("rms_norm's rms_einsum variant", "A12")
+    """RMSNorm with float32 statistics over a float32 copy of ``x``, or
+    (``rms_einsum``, ``x`` not float32) over exact bf16 products."""
     dt = x.dtype
     scale = p["scale"].float()
     if zero_centered:
         scale = 1.0 + scale
     xf = x.float()
+    if PERF_FLAGS["rms_einsum"] and dt != torch.float32:
+        inv = torch.rsqrt(torch.sum(xf * xf, dim=-1) / x.shape[-1] + eps)[..., None]
+        return x * (inv * scale).to(dt)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xn = xf * torch.rsqrt(var + eps)
     return (xn * scale).to(dt)
@@ -128,8 +149,12 @@ def _mask_bias(mode: str, q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 def _scores(q, k, bias, softcap: float, scale: float):
     """q: (B,S,KV,G,D), k: (B,T,KV,D), bias: (B,S,T).  Returns the biased,
-    capped scores (B,KV,G,S,T) float32."""
-    s = torch.einsum("bskgd,btkd->bkgst", q.float() * scale, k.float())
+    capped scores (B,KV,G,S,T) float32.  ``softmax_bf16_probs`` (q not
+    float32): q·scale rounded to q's type first."""
+    qs = q.float() * scale
+    if PERF_FLAGS["softmax_bf16_probs"] and q.dtype != torch.float32:
+        qs = qs.to(q.dtype).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qs, k.float())
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     return s + bias[:, None, None, :, :]
@@ -138,13 +163,19 @@ def _scores(q, k, bias, softcap: float, scale: float):
 def _scores_softmax_values(q, k, v, bias, softcap: float, scale: float):
     """q: (B,S,KV,G,D), k/v: (B,T,KV,D), bias: (B,S,T).  Returns
     (B,S,KV,G,D) float32."""
-    if PERF_FLAGS["softmax_bf16_probs"]:
-        raise not_ported("bf16 softmax probabilities (softmax_bf16_probs)", "A12")
     s = _scores(q, k, bias, softcap, scale)
     m = torch.amax(s, dim=-1, keepdim=True).clamp_min(-1e30)  # fully masked rows
     p = torch.exp(s - m)
     denom = torch.sum(p, dim=-1, keepdim=True)
     p = p / denom.clamp_min(1e-30)
+    return weighted_values(p, v)
+
+
+def weighted_values(p, v):
+    """p (B,KV,G,S,T) float32 @ v (B,T,KV,D) -> (B,S,KV,G,D) float32;
+    ``softmax_bf16_probs`` (v not float32): p rounded to v's type."""
+    if PERF_FLAGS["softmax_bf16_probs"] and v.dtype != torch.float32:
+        p = p.to(v.dtype).float()
     return torch.einsum("bkgst,btkd->bskgd", p, v.float())
 
 
@@ -242,14 +273,20 @@ def attention(p: dict, x: torch.Tensor, cfg, *,
 
         def full_pass(q5, k, v, q_pos, k_pos):
             if q_chunk and S > q_chunk and S % q_chunk == 0:
-                # flash-style: a bias a chunk, so no (S, S) mask materializes
+                # flash-style: a bias a chunk, so no (S, S) mask
+                # materializes; each chunk recomputed in the backward, so
+                # no (c, T) scores are kept
+                def step(qq, pp, k, v, k_pos):
+                    bb = _mask_bias(mode, pp, k_pos, window=window,
+                                    prefix_len=prefix_len)               # (B,c,T)
+                    return _scores_softmax_values(qq, k, v, bb,
+                                                  cfg.attn_softcap, scale)
+
                 out = torch.empty(q5.shape, dtype=torch.float32, device=q5.device)
                 for lo in range(0, S, q_chunk):
                     hi = lo + q_chunk
-                    bb = _mask_bias(mode, q_pos[:, lo:hi], k_pos, window=window,
-                                    prefix_len=prefix_len)               # (B,c,T)
-                    out[:, lo:hi] = _scores_softmax_values(
-                        q5[:, lo:hi], k, v, bb, cfg.attn_softcap, scale)
+                    out[:, lo:hi] = recompute(step, q5[:, lo:hi],
+                                              q_pos[:, lo:hi], k, v, k_pos)
                 return out
             bias = _mask_bias(mode, q_pos, k_pos, window=window,
                               prefix_len=prefix_len)                     # (B,S,T)

@@ -24,12 +24,23 @@ a host sync).  It writes the step's keys and values into the KV cache in
 place, at slot ``pos``; the recurrent states it returns (RWKV's, Mamba's)
 are new tensors, one stack a leaf, and the static cross cache is the one
 given.
+
+``cfg.remat`` is honoured where the reference honours it: ``forward``'s
+groups, ``encode``'s layers and (whenever it is not ``"none"``) each loss
+chunk are recomputed in the backward (:meth:`Model._maybe_remat`); the
+attention's query chunks and mamba's chunk steps always are
+(``layers.recompute``).  ``prefill`` and ``decode_step`` record no
+gradient, so nothing is recomputed there.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from . import moe as M
@@ -79,6 +90,20 @@ def _restack(old, views: list, news: list):
     if all(n is v for n, v in zip(news, views)):
         return old
     return torch.stack(news)
+
+
+# products with no batch dimension: the projections' ``torch.matmul`` of a
+# (B, S, d) activation by a (d, f) weight folds to one ``mm``; every
+# einsum the model runs inside a group has batch dims (its ``bmm``)
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``checkpoint_dots_with_no_batch_dims``: keep the outputs of
+    products with no batch dimensions, recompute everything else."""
+    if op in _NO_BATCH_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _zero_aux(device):
@@ -279,6 +304,22 @@ class Model(nn.Module):
         return x, aux, new_cache
 
     # ------------------------------------------------------------------
+    # rematerialization (the reference's _maybe_remat)
+    # ------------------------------------------------------------------
+
+    def _maybe_remat(self, fn):
+        """``fn`` as ``cfg.remat`` wants it: ``"none"`` keeps every
+        activation, ``"full"`` recomputes the whole of ``fn`` in the
+        backward, ``"dots"`` keeps only the outputs of products with no
+        batch dimensions and recomputes the rest."""
+        r = self.cfg.remat
+        if r == "none":
+            return fn
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy) if r == "dots" else None
+        return functools.partial(L.recompute, fn, context_fn=ctx)
+
+    # ------------------------------------------------------------------
     # encoder (enc-dec archs)
     # ------------------------------------------------------------------
 
@@ -287,13 +328,18 @@ class Model(nn.Module):
         cfg = self.cfg
         x = frames.to(_DTYPES[cfg.dtype])
         enc = params["encoder"]
-        for g in range(cfg.n_enc_layers):
-            sub = gather_weights(_index(enc["layers"], g)["l0"])
+
+        def layer_fn(gp, x):
+            sub = gather_weights(gp["l0"])
             h = L.rms_norm(sub["ln1"], x, cfg.norm_eps)
             a, _ = L.attention(sub["attn"], h, cfg, mode="bidir")
             x = x + a
             h2 = L.rms_norm(sub["ln2"], x, cfg.norm_eps)
-            x = x + L.ffn(sub["ffn"], h2, cfg.ffn_act)
+            return x + L.ffn(sub["ffn"], h2, cfg.ffn_act)
+
+        layer_fn = self._maybe_remat(layer_fn)
+        for g in range(cfg.n_enc_layers):
+            x = layer_fn(_index(enc["layers"], g), x)
         return L.rms_norm(enc["final_norm"], x, cfg.norm_eps)
 
     def _inputs_to_x(self, params, batch):
@@ -317,10 +363,15 @@ class Model(nn.Module):
     def forward(self, params, batch):
         x, positions, prefix_len, enc_out = self._inputs_to_x(params, batch)
         aux = _zero_aux(x.device)
-        for g in range(self.cfg.n_groups):
-            x, gaux, _ = self._apply_group(_index(params["layers"], g), x,
-                                           positions=positions,
+
+        def group_fn(gp, x):
+            x, gaux, _ = self._apply_group(gp, x, positions=positions,
                                            prefix_len=prefix_len, enc_out=enc_out)
+            return x, gaux
+
+        group_fn = self._maybe_remat(group_fn)
+        for g in range(self.cfg.n_groups):
+            x, gaux = group_fn(_index(params["layers"], g), x)
             if gaux is not None:
                 aux = {k: aux[k] + gaux[k] for k in aux}
         x = L.rms_norm(params["final_norm"], x, self.cfg.norm_eps)
@@ -343,14 +394,21 @@ class Model(nn.Module):
         c = min(s_chunk, Sl)
         if Sl % c:
             c = Sl
+
+        def chunk_fn(hc, tc, mc):
+            logits = self.unembed(params, hc)                 # (B, c, V) float32
+            lse, tgt, hit = xent_parts(logits, tc)
+            return ((lse - tgt) * mc).sum(), mc.sum(), (hit * mc).sum()
+
+        if cfg.remat != "none":
+            chunk_fn = functools.partial(L.recompute, chunk_fn)
         nll, cnt, corr = [], [], []
         for lo in range(0, Sl, c):
-            tc, mc = targets[:, lo:lo + c], mask[:, lo:lo + c]
-            logits = self.unembed(params, h[:, lo:lo + c])  # (B, c, V) float32
-            lse, tgt, hit = xent_parts(logits, tc)
-            nll.append(((lse - tgt) * mc).sum())
-            cnt.append(mc.sum())
-            corr.append((hit * mc).sum())
+            n, k, r = chunk_fn(h[:, lo:lo + c], targets[:, lo:lo + c],
+                               mask[:, lo:lo + c])
+            nll.append(n)
+            cnt.append(k)
+            corr.append(r)
         total = torch.clamp_min(torch.stack(cnt).sum(), 1.0)
         xent = torch.stack(nll).sum() / total
         loss = xent + cfg.router_aux_weight * aux["lb_loss"] \

@@ -15,7 +15,11 @@ sequence; the decode step's conv over the carried tail is a compute-type
 einsum with float32 sums, as the reference's.  The decode state's
 ``conv`` leaf is float32 by default (``init_mamba_state``) while
 ``mamba(return_state=True)`` returns the compute-type tail; the step
-casts back to the state's type.
+casts back to the state's type.  Each chunk's step (its parameters, the
+scan and the output einsum) is recomputed in the backward, as the
+reference's checkpointed scan step: only the (B, d_inner, d_state)
+carries are kept.  ``PERF_FLAGS["mamba_bf16_y"]`` rounds each chunk's y
+to the compute type, as the reference's §Perf variant.
 """
 
 from __future__ import annotations
@@ -25,13 +29,13 @@ import torch.nn.functional as F
 
 from ..parallel.actctx import constrain, shard_map
 from ..parallel.meshed import shift_time
-from .layers import not_ported
+from .layers import recompute
 from .specs import ParamSpec
 
 __all__ = ["mamba_specs", "mamba", "mamba_step", "init_mamba_state"]
 
-# the reference's §Perf variant (off by default there too); the port has
-# the baseline numerics only
+# the reference's §Perf variant, off by default as there: each chunk's y
+# rounded to the compute type
 PERF_FLAGS = {"mamba_bf16_y": False}
 
 
@@ -128,8 +132,6 @@ def mamba(p: dict, x: torch.Tensor, cfg, chunk: int = 64,
           return_state: bool = False):
     """Full-sequence mamba mixer.  x: (B, S, d) -> (B, S, d)
     (+ decode-ready state when ``return_state``)."""
-    if PERF_FLAGS["mamba_bf16_y"]:
-        raise not_ported("mamba's bf16 y variant (mamba_bf16_y)", "A12")
     B, S, _ = x.shape
     cdt = x.dtype
     di = cfg.d_inner
@@ -147,16 +149,22 @@ def mamba(p: dict, x: torch.Tensor, cfg, chunk: int = 64,
         h_all, h = _chunk_scan(a.transpose(0, 1), bx.transpose(0, 1), h)  # (L,B,di,n)
         return torch.einsum("lbcn,bln->blc", h_all, c), h                # (B,L,di)
 
-    ys = []
-    for lo in range(0, S, chunk):
-        a, bx, c = _ssm_params(p, xin[:, lo:lo + chunk], cfg)            # (B,L,di,n)
+    def step(xc, h):
+        a, bx, c = _ssm_params(p, xc, cfg)                               # (B,L,di,n)
         # local over batch and d_inner: under a mesh, on this rank's shards
         y_c, h = shard_map(scan, (a, bx, c, h),
                            (("dp", None, "tp"), ("dp", None, "tp"), ("dp",),
                             ("dp", "tp")),
                            out_like=(((B, a.shape[1], di), ("dp", None, "tp")), 3))
+        if PERF_FLAGS["mamba_bf16_y"]:
+            y_c = y_c.to(cdt)
+        return y_c, h
+
+    ys = []
+    for lo in range(0, S, chunk):
+        y_c, h = recompute(step, xin[:, lo:lo + chunk], h)
         ys.append(y_c)
-    y = torch.cat(ys, dim=1)
+    y = torch.cat(ys, dim=1).float()
     y = y + xin.float() * p["d_skip"].float()
     y = y.to(cdt) * F.silu(z.float()).to(cdt)
     out = torch.matmul(y, p["out_proj"].to(cdt))

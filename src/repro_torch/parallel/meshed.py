@@ -100,7 +100,8 @@ def _over_split_time(scores, q5, v):
     m = _all_reduce(torch.amax(s, dim=-1, keepdim=True), dist.ReduceOp.MAX)
     p = torch.exp(s - m.clamp_min(-1e30))
     denom = _all_reduce(torch.sum(p, dim=-1, keepdim=True))
-    o = _all_reduce(torch.einsum("bkgst,btkd->bskgd", p, v.float()))
+    from ..models.layers import weighted_values      # layers imports this module
+    o = _all_reduce(weighted_values(p, v))
     return o / denom.clamp_min(1e-30).permute(0, 3, 1, 2, 4)
 
 

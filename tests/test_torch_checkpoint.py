@@ -207,9 +207,25 @@ def test_parity_heals_a_rotted_basket(tmp_path, rng):
     assert torch.equal(flat["x"], x)
 
 
-def test_unported_options_raise(tmp_path):
-    tree = {"x": torch.arange(4)}
+def test_prefetching_restore_is_bitwise(tmp_path, rng):
+    """``load_pytree(prefetch=2)`` gives the tensors of ``prefetch=0`` bit
+    for bit, and the values the reference's ``load_pytree(prefetch=2)``
+    reads from the same file."""
+    tree = tree_from_numpy(_host_tree(rng), device="cpu", bf16=["opt.m"])
     p = str(tmp_path / "c.bskt")
     save_pytree(p, tree)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9, 'prefetching restore'"):
-        load_pytree(p, device="cpu", prefetch=2)
+    plain, meta0 = load_pytree(p, device="cpu", prefetch=0)
+    ahead, meta2 = load_pytree(p, device="cpu", prefetch=2, workers=2)
+    ref, _ = jax_load(p, prefetch=2)
+    assert meta0 == meta2 and plain.keys() == ahead.keys() == ref.keys()
+    for k in plain:
+        assert ahead[k].dtype == plain[k].dtype
+        assert torch.equal(ahead[k].reshape(-1).view(torch.uint8),
+                           plain[k].reshape(-1).view(torch.uint8)), k
+        want = np.asarray(ref[k])
+        if ahead[k].dtype == torch.bfloat16:
+            want = want.view(np.uint16)
+            got = ahead[k].view(torch.uint16).numpy()
+        else:
+            got = ahead[k].numpy()
+        assert np.array_equal(got, want), k

@@ -187,12 +187,32 @@ def test_param_specs_match_reference(arch):
 
 
 @pytest.mark.parametrize("flag", ["rms_einsum", "softmax_bf16_probs"])
-def test_perf_variants_name_their_item(flag, monkeypatch):
-    model = Model(_cfg("qwen3-8b", False)[1])
-    params = model.init(torch.Generator().manual_seed(0))
-    monkeypatch.setitem(layers.PERF_FLAGS, flag, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        model.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+def test_perf_variants_match_the_reference(flag, monkeypatch):
+    """The §Perf variant on in both packages (bf16 qwen3-8b, the q_chunk
+    path too): hidden states and loss within the bf16 bound of the
+    reference's jitted run with the flag on, and the variant really moves
+    the port's numbers off its default path."""
+    from repro.models import layers as jax_layers
+    cfg, port = _cfg("qwen3-8b", False)
+    cfg = dataclasses.replace(cfg, q_chunk=8)
+    port = dataclasses.replace(port, q_chunk=8)
+    params = _weights(cfg, False)
+    batch = _batch(cfg, False)
+    ref = {"params": params, "batch": batch}
+    monkeypatch.setitem(jax_layers.PERF_FLAGS, flag, True)
+    jm = JaxModel(cfg)
+    jh, _ = jax.jit(jm.forward)(params, {"tokens": jnp.asarray(batch["tokens"])})
+    jloss, _ = jax.jit(lambda p, b: jm.loss(p, b, s_chunk=S_CHUNK))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    model, tp = Model(port), _port_params(ref)
+    with torch.no_grad():
+        base, _ = model.forward(tp, _port_batch(ref, ("tokens",)))
+        monkeypatch.setitem(layers.PERF_FLAGS, flag, True)
+        h, _ = model.forward(tp, _port_batch(ref, ("tokens",)))
+        loss, _ = model.loss(tp, _port_batch(ref), s_chunk=S_CHUNK)
+    assert _rel(h, np.asarray(jh, np.float32)) < BF16_RTOL
+    assert abs(loss.item() - float(jloss)) < BF16_RTOL * abs(float(jloss))
+    assert not torch.equal(h, base)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,9 @@ import repro_torch.io.merger, repro_torch.tune
 import repro_torch.parallel.sharding, repro_torch.parallel.meshed, repro_torch.launch.mesh
 import repro_torch.launch.specs, repro_torch.launch.hlo_cost
 import repro_torch.launch.dryrun
+import repro_torch.remote, repro_torch.remote.__main__, repro_torch.fault
+import repro_torch.obs.heat, repro_torch.obs.slo, repro_torch.obs.__main__
+import repro_torch.repair.scrub, repro_torch.repair.reconcile
 repro_torch.configs.get_config("rwkv6-1.6b")
 assert not any(m.split(".")[0] in {blocked!r} for m in sys.modules), \\
     sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
@@ -58,6 +61,9 @@ import repro_torch, repro_torch.core, repro_torch.io.engine, repro_torch.obs
 import repro_torch.io, repro_torch.io.prefetch
 import repro_torch.data, repro_torch.data.pipeline
 import repro_torch.io.merger, repro_torch.tune
+import repro_torch.remote, repro_torch.remote.__main__, repro_torch.fault
+import repro_torch.obs.heat, repro_torch.obs.slo, repro_torch.obs.__main__
+import repro_torch.repair, repro_torch.repair.scrub, repro_torch.repair.reconcile
 assert "torch" not in sys.modules
 """)
     assert r.returncode == 0, r.stderr

@@ -4,6 +4,8 @@ out the same batches, the restart cursor moves between them in both
 directions, and ``BasketFile(prefetch=k)`` reads what ``prefetch=0``
 reads.  Integer outputs: compared exactly."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -122,10 +124,21 @@ def test_reads_a_reference_written_file_with_prefetch(tmp_path):
         assert np.array_equal(f.read_branch("x"), v)
 
 
-def test_unported_options_raise():
-    pipe = TokenPipeline(["repro://localhost:1/x.bskt"], batch=BATCH, seq_len=SEQ)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-            next(pipe)
-    finally:
-        pipe.close()
+def test_remote_shards_give_the_local_batches(shards):
+    """``repro://`` shard URLs served by the port's ``BasketServer`` on
+    loopback: the port's pipeline and the reference's, both over the URLs,
+    give the batches of the local paths; the shard counter says remote."""
+    from repro_torch import obs
+    from repro_torch.remote import BasketServer
+    port, _ = shards
+    kw = dict(batch=BATCH, seq_len=SEQ)
+    local = _take(TokenPipeline(port, **kw), 50)
+    before = obs.REGISTRY.snapshot().get("counters", {})
+    key = "pipeline.shards{remote=true}"
+    with BasketServer(os.path.dirname(port[0]), workers=2) as srv:
+        srv.start()
+        urls = [srv.url(os.path.basename(p)) for p in port]
+        _equal(_take(TokenPipeline(urls, **kw), 50), local)
+        _equal(_take(JaxPipeline(urls, **kw), 50), local)
+    after = obs.REGISTRY.snapshot().get("counters", {})
+    assert after.get(key, 0) - before.get(key, 0) >= 2

@@ -5,7 +5,7 @@ selective scan's pieces (softplus, the associative scan, the float32
 causal conv), ``mamba`` over one chunk, over several chunks and over the
 single-chunk fallback, with ``return_state``, ``mamba_step`` from a state
 in either conv type, ``init_mamba_state``, and the ``mamba_bf16_y``
-variant's refusal.  Inputs are drawn with numpy; the JAX side runs
+variant.  Inputs are drawn with numpy; the JAX side runs
 jitted.
 
 Tolerance.  The port reproduces ``lax.associative_scan``'s order of
@@ -236,9 +236,21 @@ def test_init_mamba_state_matches_reference(dtype):
         assert tuple(got[k].shape) == want[k].shape and not got[k].any()
 
 
-def test_bf16_y_variant_names_its_item(monkeypatch):
+def test_bf16_y_variant_matches_the_reference(monkeypatch):
+    """``mamba_bf16_y`` on in both packages, bf16 over several chunks: the
+    outputs within the bf16 bound of the reference's jitted pass with the
+    flag on (bit-equal on the default path, see the module's docstring),
+    and off the port's default path."""
     cfg, port = _cfgs()
-    flat, x = _draw(cfg, 8)
+    flat, x = _draw(cfg, 128)
+    jdt, tdt = DTYPES["bfloat16"]
+    tp, tx = _torch(_unflatten(flat), tdt), torch.tensor(x).to(tdt)
+    base = ssm.mamba(tp, tx, port)
+    monkeypatch.setitem(jssm.PERF_FLAGS, "mamba_bf16_y", True)
     monkeypatch.setitem(ssm.PERF_FLAGS, "mamba_bf16_y", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        ssm.mamba(_torch(_unflatten(flat), torch.float32), torch.tensor(x), port)
+    want = jax.jit(lambda p, x: jssm.mamba(p, x, cfg))(
+        _jax(_unflatten(flat), jdt), jnp.asarray(x).astype(jdt))
+    got = ssm.mamba(tp, tx, port)
+    assert got.dtype == tdt
+    assert _rel(got, want) < BF16_RTOL
+    assert not torch.equal(got, base)
