@@ -1,0 +1,8 @@
+"""Device, in a training cell: the share of the traced window in which no
+operation ran on the card, in %."""
+
+
+def read(seen):
+    if seen.records.get("kind") != "train" or not seen.busy_s:
+        return None
+    return (1 - seen.busy_s / seen.trace_window_s) * 100
