@@ -190,7 +190,6 @@ class TokenPipeline:
                     cursor = {"epoch": epoch, "file_idx": file_idx,
                               "window_idx": wi + self.batch, "seed": self.seed}
                     self._q.put((batch, cursor))
-                    obs.gauge("pipeline.queue_depth").set(self._q.qsize())
                     wi += self.batch
                 window_idx = 0
                 file_idx += 1
@@ -233,11 +232,11 @@ class TokenPipeline:
 
     def __next__(self) -> dict:
         self._ensure_thread()
-        item = self._q.get()
+        with obs.trace.span("pipeline.next", cat="data"):
+            item = self._q.get()
         if isinstance(item, Exception):
             raise item
         batch, cursor = item
-        obs.counter("pipeline.batches").inc()
         # the cursor of the batch just handed out = state to persist
         self.epoch = cursor["epoch"]
         self.file_idx = cursor["file_idx"]

@@ -31,6 +31,11 @@ chunk are recomputed in the backward (:meth:`Model._maybe_remat`); the
 attention's query chunks and mamba's chunk steps always are
 (``layers.recompute``).  ``prefill`` and ``decode_step`` record no
 gradient, so nothing is recomputed there.
+
+Each attention, Mamba and MoE layer runs inside a ``model.attention``,
+``model.mamba`` or ``model.moe`` span (:mod:`repro_torch.obs.trace`),
+projections included; a recomputed group opens its spans again, on the
+thread that runs the backward.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from . import rwkv as R
 from . import ssm as SSM
 from .config import ModelConfig
 from .specs import ParamSpec, abstract_params, init_params
+from .. import obs
 from ..checkpoint.manager import _resolve_device
 from ..parallel.actctx import constrain, gather_weights
 from ..parallel.meshed import embed_lookup, xent_parts
@@ -235,26 +241,28 @@ class Model(nn.Module):
             if pe.mixer in ("attn", "local"):
                 mode = "sliding" if pe.mixer == "local" else (
                     "prefix" if (cfg.n_img_tokens and not decoding) else "causal")
-                attn_out, kv = L.attention(
-                    sub["attn"], h, cfg, mode=mode, positions=positions,
-                    cache=lcache.get("self"), cache_pos=cache_pos,
-                    build_cache=build_cache,
-                    window=cfg.local_window, prefix_len=prefix_len,
-                    q_chunk=cfg.q_chunk)
+                with obs.trace.span("model.attention", cat="model"):
+                    attn_out, kv = L.attention(
+                        sub["attn"], h, cfg, mode=mode, positions=positions,
+                        cache=lcache.get("self"), cache_pos=cache_pos,
+                        build_cache=build_cache,
+                        window=cfg.local_window, prefix_len=prefix_len,
+                        q_chunk=cfg.q_chunk)
                 if kv is not None:
                     nc["self"] = kv
                 if cfg.post_norm:
                     attn_out = L.rms_norm(sub["post_ln1"], attn_out, cfg.norm_eps)
                 x = x + attn_out
             elif pe.mixer == "mamba":
-                if decoding:
-                    mx, nc["ssm_state"] = SSM.mamba_step(sub["mamba"], h,
-                                                         lcache["ssm_state"], cfg)
-                elif build_cache:
-                    mx, nc["ssm_state"] = SSM.mamba(sub["mamba"], h, cfg,
-                                                    return_state=True)
-                else:
-                    mx = SSM.mamba(sub["mamba"], h, cfg)
+                with obs.trace.span("model.mamba", cat="model"):
+                    if decoding:
+                        mx, nc["ssm_state"] = SSM.mamba_step(
+                            sub["mamba"], h, lcache["ssm_state"], cfg)
+                    elif build_cache:
+                        mx, nc["ssm_state"] = SSM.mamba(sub["mamba"], h, cfg,
+                                                        return_state=True)
+                    else:
+                        mx = SSM.mamba(sub["mamba"], h, cfg)
                 x = x + mx
             else:                                       # rwkv
                 tmx, (last_x, s_fin) = R.rwkv_time_mix(
@@ -287,7 +295,8 @@ class Model(nn.Module):
                 if pe.ffn == "dense":
                     f = L.ffn(sub["ffn"], h2, cfg.ffn_act)
                 elif pe.ffn == "moe":
-                    f, moe_aux = M.moe_ffn(sub["moe"], h2, cfg)
+                    with obs.trace.span("model.moe", cat="model"):
+                        f, moe_aux = M.moe_ffn(sub["moe"], h2, cfg)
                     aux = moe_aux if aux is None else \
                         {k: aux[k] + moe_aux[k] for k in aux}
                 else:                                   # rwkv channel mix

@@ -30,12 +30,24 @@ via :func:`drain` + :func:`ingest`.  When the ring is full each
 appended event evicts the oldest and bumps the ``obs.trace.dropped``
 counter.  The enable gate is shared with metrics (``REPRO_OBS=off`` /
 :func:`repro_torch.obs.metrics.set_enabled`).
+
+While a ``torch.profiler`` records on the thread, each span also opens a
+profiler range of its name (a CPU operation in the profiler's trace, not a
+user annotation, so no copy of it lands on the device's timeline).  The
+profiler stamps the range on its own clock, the one of the device's
+kernels, and on the thread that opened it: each kernel's launch falls
+inside the ranges of the spans that issued it, and Perfetto shows the
+spans above the kernels.  The ring's own timestamps stay on the clock
+above.  With no profiler recording a span pays one check; where ``torch``
+was never imported (the storage layer's worker processes) the check is a
+dictionary lookup and imports nothing.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -55,6 +67,18 @@ _DEFAULT_CAPACITY = 65536
 _lock = threading.Lock()
 _ring: deque = deque(maxlen=_DEFAULT_CAPACITY)
 _thread_names: dict[int, str] = {}
+# the pid, read once a process and again in a forked child: os.getpid() is
+# a system call, and on hosts where those are dear it outweighed the rest
+# of a span
+_pid = os.getpid()
+
+
+def _refresh_pid() -> None:
+    global _pid
+    _pid = os.getpid()
+
+
+os.register_at_fork(after_in_child=_refresh_pid)
 
 
 def _now_us() -> float:
@@ -92,8 +116,20 @@ def _append(ev: dict) -> None:
         _metrics.REGISTRY.counter("obs.trace.dropped").inc()
 
 
+def _profiler_range(name: str):
+    """An entered profiler range named ``name`` while a ``torch.profiler``
+    records on this thread, else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    r = torch._C._profiler._RecordFunctionFast(name)
+    r.__enter__()
+    return r
+
+
 class _Span:
-    __slots__ = ("name", "cat", "args", "_t0", "_ctx", "_parent", "_prof")
+    __slots__ = ("name", "cat", "args", "_t0", "_ctx", "_parent", "_prof",
+                 "_range")
 
     def __init__(self, name: str, cat: str, args: dict, root: bool):
         self.name = name
@@ -124,9 +160,12 @@ class _Span:
                 self.name,
                 self._ctx.trace_id if self._ctx is not None else "")
         self._t0 = _now_us()
+        self._range = _profiler_range(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         t1 = _now_us()
         if self._prof:
             _profile.note_pop()
@@ -136,7 +175,7 @@ class _Span:
             self.args = dict(self.args, error=exc_type.__name__)
         ev = {"name": self.name, "cat": self.cat, "ph": "X",
               "ts": self._t0, "dur": t1 - self._t0,
-              "pid": os.getpid(), "tid": _note_thread()}
+              "pid": _pid, "tid": _note_thread()}
         if self._ctx is not None:
             ids = {"trace_id": self._ctx.trace_id,
                    "span_id": self._ctx.span_id}
@@ -181,7 +220,7 @@ def instant(name: str, cat: str = "repro", **args) -> None:
     if ctx is not None:
         args = dict(args, trace_id=ctx.trace_id, parent_id=ctx.span_id)
     ev = {"name": name, "cat": cat, "ph": "i", "s": "t",
-          "ts": _now_us(), "pid": os.getpid(), "tid": _note_thread()}
+          "ts": _now_us(), "pid": _pid, "tid": _note_thread()}
     if args:
         ev["args"] = args
     _append(ev)

@@ -89,7 +89,6 @@ class ServeEngine:
         rid = self._next_id
         self._next_id += 1
         self._queue.append((rid, np.asarray(tokens, np.int32), max_new))
-        obs.counter("serve.requests").inc()
         return rid
 
     @torch.no_grad()
@@ -153,7 +152,6 @@ class ServeEngine:
                     torch.from_numpy(last).to(self.device), pos)
                 nxt = sample_logits(logits, self.generator,
                                     self.temperature).cpu().numpy()
-            obs.counter("serve.tokens").inc(len(active))
             for i in active:
                 s = self.slots[i]
                 tok = int(nxt[i])
@@ -166,5 +164,3 @@ class ServeEngine:
         s = self.slots[slot_i]
         self._done[s.req_id] = np.asarray(s.out, np.int32)
         s.active = False
-        obs.counter("serve.completed").inc()
-        obs.histogram("serve.gen_tokens").observe(len(s.out))

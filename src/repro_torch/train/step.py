@@ -8,7 +8,10 @@ casts the float32 leaves to the compute type inside the graph, so their
 gradients arrive in float32, as ``jax.value_and_grad`` gives them through
 the reference's cast.  The optimizer and the compression run under
 ``torch.no_grad`` and return new tensors; the state passed in is not
-written.
+written.  The step's phases run inside spans (:mod:`repro_torch.obs.trace`):
+``train.fwd_bwd`` (each microbatch's loss and gradients; the backward's
+launches come from autograd's own thread), ``train.quantize_ef``,
+``train.clip`` and ``train.adamw`` (the schedule and the update).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import obs
 from ..models.model import _DTYPES
 from .optim import (adamw_init, adamw_update, clip_by_global_norm,
                     reciprocal, tree_leaves, tree_map, tree_unflatten,
@@ -138,7 +142,7 @@ def make_train_step(model, *, peak_lr=3e-4, warmup=100, total_steps=10_000,
         else:
             leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(leaves)
-        with torch.enable_grad():
+        with torch.enable_grad(), obs.trace.span("train.fwd_bwd", cat="train"):
             inputs = leaves if bf16_grads else tree_map(cast, leaves)
             loss, metrics = model.loss(inputs, mb)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -167,17 +171,20 @@ def make_train_step(model, *, peak_lr=3e-4, warmup=100, total_steps=10_000,
 
         with torch.no_grad():
             if compress_grads:
-                pairs = [_quantize_ef(g, e) for g, e in zip(
-                    tree_leaves(grads), tree_leaves(state.err))]
+                with obs.trace.span("train.quantize_ef", cat="train"):
+                    pairs = [_quantize_ef(g, e) for g, e in zip(
+                        tree_leaves(grads), tree_leaves(state.err))]
                 grads = tree_unflatten(params, [p[0] for p in pairs])
                 new_err = tree_unflatten(params, [p[1] for p in pairs])
             else:
                 new_err = state.err
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-            lr = warmup_cosine(state.step, peak_lr=peak_lr, warmup=warmup,
-                               total=total_steps)
-            new_params, new_opt = adamw_update(grads, state.opt, params, lr,
-                                               weight_decay=weight_decay)
+            with obs.trace.span("train.clip", cat="train"):
+                grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            with obs.trace.span("train.adamw", cat="train"):
+                lr = warmup_cosine(state.step, peak_lr=peak_lr, warmup=warmup,
+                                   total=total_steps)
+                new_params, new_opt = adamw_update(grads, state.opt, params, lr,
+                                                   weight_decay=weight_decay)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
