@@ -40,7 +40,13 @@ runs, failing on the first error:
    ``view().t().contiguous()`` and a copy; and for every kernel at its
    small shape the host microseconds and device operations a call, from the
    profiler (one for qpack and the bit and byte shuffles, also with a
-   tail);
+   tail); last the Mamba layer's selective scan at jamba's prefill (B 8,
+   S 510) and decode (S 1) shapes, d_inner 8192, d_state 16, bf16 x,
+   from a non-zero state, against its plain version (``models/ssm.py``'s
+   eager scan as one chunk and the output einsum) within 1e-5 relative,
+   timed by events beside it and the bound, with device microseconds and
+   operations a call (the kernel alone) and the decode's host
+   microseconds, and its registers and spills from ``ptxas -v``;
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
@@ -104,8 +110,10 @@ runs, failing on the first error:
    ``repro_torch.launch.serve`` with phase 6's traffic after an untimed
    warm-up run: tok/s, prefill and decode-step times beside the decode
    step's bound (every weight but the embedding: the dispatch runs every
-   expert), peak memory, and a profiled window that times the mamba scan,
-   the MoE dispatch, combine and expert GEMMs apart;
+   expert), peak memory, and a profiled window that times the mamba scan
+   kernel, the MoE dispatch, combine and expert GEMMs apart; jamba's timed
+   run launches the scan kernel once a Mamba layer in every prefill and
+   decode step, llama4-scout's never;
 9. checks at full width: one llama4-scout MoE layer in float32, dropless,
    against a loop over its experts; one jamba mamba layer, the full pass
    against 64 decode steps (the reference's invariant, max abs 5e-3);
@@ -114,8 +122,11 @@ runs, failing on the first error:
    encoder's projections; the reduced llama4-scout, jamba and seamless on
    the card against the port on the CPU in float32 (1e-4); one jamba mamba
    layer at S = 4096 through forward and backward with its chunk steps
-   recomputed and without, gradients bitwise, the peak of each; and
-   ``mamba_bf16_y`` against the default path;
+   recomputed and without, gradients bitwise, the peak of each;
+   ``mamba_bf16_y`` against the default path; and one jamba mamba layer
+   over 8 x 510 bf16 tokens and a decode step on the scan kernel (autograd
+   off) against the eager scan (on), one launch a call, the output within
+   3 % and the state within 1e-5, each path's time and peak;
 10. the port's dry run: ``python -m repro_torch.launch.dryrun --arch
    qwen3-8b --shape all --mesh both`` in a child process (a fake world of
    256 or 512 ranks, no GPU), all six cells OK (an op DTensor cannot lay
@@ -137,10 +148,12 @@ around phase 4c's elastic restore and phase 4e's prefetching restore, and
 before and after phase 4b's tuned save and its restore,
 zeroed before phase 5's serve run and read after it (the rwkv6 serve
 path), and again around the timed runs of phases 6, 7 and 8 (the dense,
-hybrid and MoE serve paths, which launch none of the port's kernels).  A kernel's ``launches`` in the
-JSON record is the sum over phases 3, 3b, 4, 4c, 4e and 4b (the checkpoint
-kernels) or phase 5 (qpack, qunpack); zigzag and unzigzag, which replace
-no Pallas kernel, carry ``"port_only": true``.  Each phase prints its seconds.  At the end
+hybrid and MoE serve paths; of the port's kernels only the hybrid's
+selective scan runs there).  A kernel's ``launches`` in the JSON record
+is the sum over phases 3, 3b, 4, 4c, 4e and 4b (the checkpoint kernels),
+phase 5 (qpack, qunpack) or phase 7 (selective_scan); zigzag, unzigzag
+and selective_scan, which replace no Pallas kernel, carry
+``"port_only": true``.  Each phase prints its seconds.  At the end
 the script stops multiprocessing's forkserver and resource tracker and
 lists its descendants from ``/proc``: if any is still alive after 10 s, or
 ``multiprocessing`` still has a child, or a thread of the remote service is
@@ -1409,6 +1422,114 @@ def qpack_targets(rows, split, large):
 
 
 # ---------------------------------------------------------------------------
+# phase 1, continued: the Mamba layer's selective scan
+# ---------------------------------------------------------------------------
+
+SCAN_SHAPES = {"prefill": (8, 510), "decode": (8, 1)}   # jamba's cell: B, S
+SCAN_WIDTHS = (8192, 16, 256)      # jamba's d_inner, d_state and dt rank
+SCAN_RTOL = 1e-5                   # float32, relative Frobenius (the card tests')
+# float32 instructions a state and step (two products, two FMAs, the
+# accurate expf), at half F32_FLOPS (an FMA counts two there)
+SCAN_INSTR = 11
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+
+
+def _scan_inputs(torch, B, S, seed):
+    """The kernel's arguments at jamba's widths: dt a softplus around the
+    bias's init, bf16 x at unit scale, B and C a strided view past the dt
+    rank's columns (as the x projection's split gives them), A around
+    a_log's init, a non-zero state."""
+    from repro_torch.models import ssm
+    di, n, rank = SCAN_WIDTHS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = ssm._softplus(0.5 * torch.randn(B, S, di, generator=g, device="cuda") + 0.01)
+    x = torch.randn(B, S, di, generator=g, device="cuda").to(torch.bfloat16)
+    bc = torch.randn(B, S, rank + 2 * n, generator=g, device="cuda").to(
+        torch.bfloat16)[..., rank:]
+    a = -torch.exp(1.0 + 0.1 * torch.randn(di, n, generator=g, device="cuda"))
+    h0 = torch.randn(B, di, n, generator=g, device="cuda")
+    return dt, x, bc, a, h0
+
+
+def _plain_scan(torch, dt, x, bc, a, h0):
+    """The scan's plain version: ``models/ssm.py``'s eager scan over the
+    whole sequence as one chunk, then the output einsum."""
+    from repro_torch.models import ssm
+    n = a.shape[1]
+    av = torch.exp(dt[..., None] * a)
+    bx = (dt * x.float())[..., None] * bc[..., :n].float()[:, :, None, :]
+    h_all, h = ssm._chunk_scan(av.transpose(0, 1), bx.transpose(0, 1), h0)
+    return torch.einsum("lbcn,bln->blc", h_all, bc[..., n:].float()), h
+
+
+def _ptxas(path: str) -> list:
+    """The registers and spills ``ptxas -v`` reports for one ``.cu``,
+    compiled alone with the library's flags."""
+    from repro_torch.kernels import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([_build._nvcc(), *_build._ARCH, *_build._FLAGS,
+                              "-Xptxas", "-v", "-c", os.path.join(ROOT, path), "-o",
+                              os.path.join(tmp, "k.o")],
+                             capture_output=True, text=True, check=True)
+    return [line.split("info    : ")[-1] for line in out.stderr.splitlines()
+            if "registers" in line or "spill" in line]
+
+
+def phase_selective_scan(torch, K) -> dict:
+    """The scan kernel against its plain version (:func:`_plain_scan`) at
+    jamba's prefill and decode shapes (``SCAN_SHAPES``, ``SCAN_WIDTHS``,
+    bf16 x): y and the last state within ``SCAN_RTOL``; timed by events
+    beside the plain version and the bound (the larger of the bytes read
+    and written once and ``SCAN_INSTR`` float32 instructions a state and
+    step), with device microseconds and operations a call from the
+    profiler (the kernel alone, once a call) and, at the decode shape, the
+    host microseconds a call.  Returns the kernel's JSON row."""
+    kern = K["selective_scan"]
+    di, n, _ = SCAN_WIDTHS
+    row = {"name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+           "replaces": "src/repro/models/ssm.py:61", "port_only": True,
+           "launches": 0, "bound_by": "compute", "ptxas": _ptxas(SCAN_SOURCE)}
+    log(f"phase 1: selective_scan ptxas: {row['ptxas']}")
+    for label, (B, S) in SCAN_SHAPES.items():
+        args = _scan_inputs(torch, B, S, seed=S)
+        y, h = kern(*args)
+        wy, wh = _plain_scan(torch, *args)
+        torch.cuda.synchronize()
+        err = max(_rel(torch, y, wy), _rel(torch, h, wh))
+        assert torch.isfinite(y).all() and err < SCAN_RTOL, (label, err)
+        del y, h, wy, wh
+        item = args[1].element_size()
+        nbytes = (B * S * di * (4 + item + 4) + B * S * 2 * n * item + di * n * 4
+                  + 2 * B * di * n * 4)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        instr_ms = B * S * di * n * SCAN_INSTR / (F32_FLOPS / 2) * 1e3
+        before = kern.launches
+        if label == "prefill":
+            ms = cuda_ms(lambda: kern(*args), 20, 3)
+            plain_ms = cuda_ms(lambda: _plain_scan(torch, *args), 3)
+        else:
+            ms = cuda_ms(lambda: kern(*args), 200, 5)
+            plain_ms = cuda_ms(lambda: _plain_scan(torch, *args), 50, 3)
+        assert kern.launches > before
+        us, ops_per_call, names = device_ops_best(lambda: kern(*args), calls=20)
+        assert len(names) == 1 and "selective_scan_kernel" in next(iter(names)) \
+            and 0.9 <= ops_per_call <= 1, (label, names)
+        got = {"shape": [B, S, di, n], "x": "bf16", "max_rel_err": err, "ms": ms,
+               "device_us": us, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, instr_ms),
+               "bytes_bound_ms": bytes_ms, "instr_bound_ms": instr_ms}
+        if label == "decode":
+            got["host_us"] = host_us(lambda: kern(*args))
+        row.update(got if label == "prefill" else {f"decode_{k}": v for k, v in got.items()})
+        log(f"phase 1: selective_scan {label} {B}x{S}x{di}x{n} bf16 x: rel err {err:.2e}; "
+            f"events {ms:.4f} ms, device {us:.2f} us a call ({ops_per_call:g} ops), "
+            f"bound {got['bound_ms']:.4f} ms ({100 * got['bound_ms'] / (us / 1e3):.0f} % "
+            f"of it by device time; bytes {bytes_ms:.4f}, instructions {instr_ms:.4f}); "
+            f"plain {plain_ms:.4f} ms"
+            + (f"; host {got['host_us']:.2f} us a call" if label == "decode" else ""))
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 2: golden checkpoint from CUDA tensors
 # ---------------------------------------------------------------------------
 
@@ -2440,10 +2561,14 @@ def _profile_window(torch, model, params, group, tokens, labels=None):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     quant_ms = sum(e.self_device_time_total for e in kernels
                    if "qpack_kernel" in e.key or "qunpack_kernel" in e.key) / 1e3
+    # by name: a port kernel's launch is no aten call, so no range holds it
+    scan_ms = sum(e.self_device_time_total for e in kernels
+                  if "selective_scan_kernel" in e.key) / 1e3
     launches = sum(e.count for e in kernels)
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / wall_ms,
            "kernel_launches": launches, "quant_kernels_ms": quant_ms,
+           "scan_kernel_ms": scan_ms,
            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                               for e in top}}
     if names:
@@ -2780,12 +2905,12 @@ FAMILY_SERVES = {
 
 
 def _family_labels():
-    """The new layer types' pieces, timed apart in the profiled window."""
+    """The new layer types' pieces, timed apart in the profiled window (the
+    scan kernel by its name, ``scan_kernel_ms``)."""
     from repro_torch.models import moe, ssm
     return {(ssm, "mamba"): "mamba (prefill)", (ssm, "mamba_step"): "mamba (decode)",
             (ssm, "_conv1d"): "mamba conv (prefill)",
-            (ssm, "_ssm_params"): "mamba dt, exp(dt A), dt B x",
-            (ssm, "_chunk_scan"): "mamba scan", (moe, "moe_ffn"): "moe (all)",
+            (ssm, "_ssm_inputs"): "mamba dt, B, C", (moe, "moe_ffn"): "moe (all)",
             (moe, "_top_k"): "moe top-k sorts",
             (moe, "_dispatch_gather"): "moe dispatch",
             (moe, "_combine_gather"): "moe combine",
@@ -2836,6 +2961,10 @@ def phase_family_serve(torch, ops, phase, arch):
     n_tok = sum(len(v) for v in out.values())
     prefill_ms, prefill_med, n_prefill = _span_ms(spans, "serve.prefill")
     decode_ms, decode_med, n_decode = _span_ms(spans, "serve.decode_step")
+    # the scan kernel: once a Mamba layer in every prefill and decode step
+    n_mamba = sum(p.mixer == "mamba" for p in cfg.pattern) * cfg.n_groups
+    assert counts["selective_scan"] == n_mamba * (n_prefill + n_decode), \
+        (counts, n_mamba, n_prefill, n_decode)
     # every expert's weights are read at every step (the dispatch runs
     # each expert's GEMM), so the bound is every weight but the embedding
     weight_bytes = sum(t.numel() * t.element_size() for k, t in leaves.items()
@@ -3005,6 +3134,48 @@ def _mamba_bf16_y(torch):
     return {"rel_err": rel, "bits_equal": same_bits(got, want)}
 
 
+def _mamba_layer_on_kernel(torch):
+    """One jamba mamba layer at full width (d_model 4096, bf16) over jamba's
+    cell's prefill (8 x 510) and one decode step after it: the kernel path
+    (autograd off) against the eager path (on), one launch a call, the
+    output within ``VARIANT_RTOL`` and the state within ``SCAN_RTOL``; each
+    path's time by events and its peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models import ssm
+    from repro_torch.models.specs import init_params
+    cfg = get_config("jamba-v0.1-52b")
+    p = init_params(ssm.mamba_specs(cfg), torch.Generator(device="cuda").manual_seed(9),
+                    torch.bfloat16)
+    B, S = SCAN_SHAPES["prefill"]
+    x = (torch.randn((B, S + 1, cfg.d_model), generator=torch.Generator(device="cuda")
+                     .manual_seed(6), device="cuda") * 0.5).to(torch.bfloat16)
+    x0, x1 = x[:, :S], x[:, S:]
+    out = {}
+    for path, grad in (("kernel", False), ("eager", True)):
+        with torch.set_grad_enabled(grad):
+            before = selective_scan.launches
+            y, st = ssm.mamba(p, x0, cfg, return_state=True)
+            y1, st1 = ssm.mamba_step(p, x1, st, cfg)
+            out[f"{path}_launches"] = selective_scan.launches - before
+            out[path] = (y, y1, st1["ssm"])
+            out[f"{path}_prefill_ms"] = cuda_ms(lambda: ssm.mamba(p, x0, cfg), 5 if grad else 20)
+            out[f"{path}_step_ms"] = cuda_ms(lambda: ssm.mamba_step(p, x1, st, cfg), 50, 3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ssm.mamba(p, x0, cfg)
+            torch.cuda.synchronize()
+            out[f"{path}_prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del y, y1, st, st1
+    (y, y1, h), (wy, wy1, wh) = out.pop("kernel"), out.pop("eager")
+    out.update(out_rel_err=_rel(torch, y, wy), step_rel_err=_rel(torch, y1, wy1),
+               ssm_rel_err=_rel(torch, h, wh))
+    assert out["kernel_launches"] == 2 and out["eager_launches"] == 0, out
+    assert torch.isfinite(y).all() and out["out_rel_err"] < VARIANT_RTOL \
+        and out["step_rel_err"] < VARIANT_RTOL and out["ssm_rel_err"] < SCAN_RTOL, out
+    return out
+
+
 def _drawn_weights(torch, model, generator):
     """float32 weights drawn as the CPU tests draw them, on ``generator``'s
     device: normal leaves at scale / sqrt(d_model), "ones" leaves their
@@ -3128,6 +3299,7 @@ def phase_family_checks(torch):
                         ("mamba_full_vs_steps", _mamba_full_vs_steps),
                         ("mamba_chunk_remat_s4096", _mamba_remat),
                         ("mamba_bf16_y_variant", _mamba_bf16_y),
+                        ("mamba_layer_kernel_vs_eager", _mamba_layer_on_kernel),
                         ("encdec_vs_forward", _encdec_checks),
                         ("reduced_card_vs_cpu_f32", _reduced_families_agree)):
         t0 = time.perf_counter()
@@ -3321,6 +3493,7 @@ def main() -> int:
         bitshuffle_targets(rows, split)
         byteshuffle_targets(rows, split, large)
         qpack_targets(rows, split, qpack_large)
+        rows.append(phase_selective_scan(torch, ops.KERNELS))
         done("phase 1")
         phase_golden(torch, np, tmp)
         done("phase 2")
@@ -3393,6 +3566,8 @@ def main() -> int:
                         ("phase 8", "llama4-scout-17b-a16e")):
         families[arch], fam_counts = phase_family_serve(torch, ops, phase, arch)
         log(f"launches on the {arch} serve path: {fam_counts}")
+        if arch == "jamba-v0.1-52b":
+            counts["selective_scan"] = fam_counts["selective_scan"]
         done(phase)
     checks = phase_family_checks(torch)
     done("phase 9")

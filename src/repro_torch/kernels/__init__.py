@@ -6,5 +6,7 @@ quantizer) each wrap a hand-written CUDA kernel (``csrc/*.cu``, built by
 ``_build`` at first use) and count its launches; ``ref`` holds their plain
 PyTorch versions, which a wrapper runs only for a tensor on the CPU.
 ``ops`` applies a precond spec string to one basket and quantizes tensors
-of any shape.
+of any shape.  ``selective_scan`` wraps the Mamba layer's scan kernel; its
+plain version is ``models/ssm.py``'s eager scan, and the wrapper takes CUDA
+tensors alone.
 """

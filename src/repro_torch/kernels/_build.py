@@ -57,6 +57,8 @@ _SIGNATURES = {
     "rt_unzigzag": [_P, _P, _I64, _I, _I64],
     "rt_qpack": [_P, _P, _P, _I64, _I64, _I, _F],
     "rt_qunpack": [_P, _P, _P, _I64, _I64, _I64, _I],
+    "rt_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64,
+                          _I64, _I],
 }
 
 _lock = threading.Lock()           # the build and the load

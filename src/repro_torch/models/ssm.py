@@ -5,28 +5,42 @@ Recurrence (Mamba-1, per channel c and state n):
     h_t = exp(dt_t[c] * A[c, n]) * h_{t-1} + dt_t[c] * B_t[n] * x_t[c]
     y_t[c] = sum_n C_t[n] * h_t[c, n] + D[c] * x_t[c]
 
-The full-sequence pass is the reference's chunked scan: a loop over
-chunks of 64 tokens (one chunk of S tokens where S % 64) carries the
-(B, d_inner, d_state) float32 state, and within a chunk the recurrence
-is ``jax.lax.associative_scan``'s odd-even recursion, reproduced step for
-step (``_associative_scan``), so the float32 products associate as the
-reference's do.  The causal conv accumulates in float32 over the full
-sequence; the decode step's conv over the carried tail is a compute-type
-einsum with float32 sums, as the reference's.  The decode state's
-``conv`` leaf is float32 by default (``init_mamba_state``) while
+The scan takes one of two paths, by what the call can observe.  A real
+CUDA tensor with autograd off (serving: the prefill and the decode step),
+of a type and a d_state the kernel is built for, runs the selective-scan
+kernel (``kernels/selective_scan.py``): one launch a layer over the whole
+sequence, whatever its length, the state in registers, the float32
+operations in sequential order, and no (B, S, d_inner, d_state) tensor
+made.  Anything else (the CPU, autograd, the dry run's fake tensors, a
+float16 compute type, another d_state) runs the eager scan, the reference's chunked
+one: a loop over chunks of 64 tokens (one chunk of S tokens where S % 64)
+carries the (B, d_inner, d_state) float32 state, and within a chunk the
+recurrence is ``jax.lax.associative_scan``'s odd-even recursion,
+reproduced step for step (``_associative_scan``), so the float32 products
+associate as the reference's do.  The full pass's scan, either path, and
+the kernel in the decode step run inside ``shard_map``, on each rank's
+shards under a mesh.  The causal conv accumulates in float32 over the
+full sequence; the decode step's conv over the carried tail is a
+compute-type einsum with float32 sums, as the reference's.  The decode
+state's ``conv`` leaf is float32 by default (``init_mamba_state``) while
 ``mamba(return_state=True)`` returns the compute-type tail; the step
 casts back to the state's type.  Each chunk's step (its parameters, the
 scan and the output einsum) is recomputed in the backward, as the
 reference's checkpointed scan step: only the (B, d_inner, d_state)
 carries are kept.  ``PERF_FLAGS["mamba_bf16_y"]`` rounds each chunk's y
-to the compute type, as the reference's §Perf variant.
+(the kernel's whole y) to the compute type, as the reference's §Perf
+variant.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
+from ..kernels.selective_scan import DTYPES as KERNEL_DTYPES
+from ..kernels.selective_scan import STATES as KERNEL_STATES
+from ..kernels.selective_scan import selective_scan
 from ..parallel.actctx import constrain, shard_map
 from ..parallel.meshed import shift_time
 from .layers import recompute
@@ -61,19 +75,51 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _ssm_params(p, x, cfg):
-    """x: (B, S, di) -> a=exp(dt*A) (B,S,di,n), bx (B,S,di,n), c (B,S,n)."""
+def _ssm_inputs(p, x, cfg):
+    """x: (B, S, di) -> dt (B,S,di) float32, bc (B,S,2n) (B then C, x's
+    type), A = -exp(a_log) (di,n) float32."""
     n = cfg.ssm_state
     dt_rank = p["x_proj"].shape[1] - 2 * n
     # row-parallel over di: the partial sums reduced here, under a mesh
     xp = constrain(torch.matmul(x, p["x_proj"].to(x.dtype)), ("dp", None, None))
-    dt_in, b_in, c_in = torch.split(xp, [dt_rank, n, n], dim=-1)
+    dt_in, bc = torch.split(xp, [dt_rank, 2 * n], dim=-1)
     dt = _softplus(torch.matmul(dt_in, p["dt_proj"].to(x.dtype)).float()
                    + p["dt_bias"].float())                               # (B,S,di)
-    a_mat = -torch.exp(p["a_log"].float())                               # (di,n)
+    return dt, bc, -torch.exp(p["a_log"].float())
+
+
+def _ssm_params(p, x, cfg):
+    """x: (B, S, di) -> a=exp(dt*A) (B,S,di,n), bx (B,S,di,n), c (B,S,n)."""
+    dt, bc, a_mat = _ssm_inputs(p, x, cfg)
+    b_in, c_in = torch.split(bc, [cfg.ssm_state] * 2, dim=-1)
     a = torch.exp(dt[..., None] * a_mat)                                 # (B,S,di,n)
     bx = (dt * x.float())[..., None] * b_in.float()[:, :, None, :]
     return a, bx, c_in.float()
+
+
+def _on_kernel(x: torch.Tensor, cfg) -> bool:
+    """The scan kernel's rule: a real CUDA tensor with autograd off, of a
+    type and a d_state the kernel is built for."""
+    return (x.is_cuda and not torch.is_grad_enabled() and not is_fake(x)
+            and x.dtype in KERNEL_DTYPES and cfg.ssm_state in KERNEL_STATES)
+
+
+def _scan_shards(dt, x, bc, a, h0):
+    """The kernel on one rank's shards, which a split of d_inner can leave
+    strided (bc's last dim keeps its unit stride)."""
+    return selective_scan(dt.contiguous(), x.contiguous(), bc, a.contiguous(),
+                          h0.contiguous())
+
+
+def _kernel_scan(p, x, h, cfg):
+    """The whole sequence in one launch of the scan kernel, on this rank's
+    shards: x (B, L, di), h (B, di, n) -> y (B, L, di) float32, last h."""
+    B, L, _ = x.shape
+    dt, bc, a_mat = _ssm_inputs(p, x, cfg)
+    return shard_map(_scan_shards, (dt, x, bc, a_mat, h),
+                     (("dp", None, "tp"), ("dp", None, "tp"), ("dp",),
+                      ("tp", None), ("dp", "tp")),
+                     out_like=(((B, L, cfg.d_inner), ("dp", None, "tp")), 4))
 
 
 def _combine(x, y):
@@ -160,11 +206,17 @@ def mamba(p: dict, x: torch.Tensor, cfg, chunk: int = 64,
             y_c = y_c.to(cdt)
         return y_c, h
 
-    ys = []
-    for lo in range(0, S, chunk):
-        y_c, h = recompute(step, xin[:, lo:lo + chunk], h)
-        ys.append(y_c)
-    y = torch.cat(ys, dim=1).float()
+    if _on_kernel(xin, cfg):
+        y, h = _kernel_scan(p, xin, h, cfg)
+        if PERF_FLAGS["mamba_bf16_y"]:
+            y = y.to(cdt)
+    else:
+        ys = []
+        for lo in range(0, S, chunk):
+            y_c, h = recompute(step, xin[:, lo:lo + chunk], h)
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)
+    y = y.float()
     y = y + xin.float() * p["d_skip"].float()
     y = y.to(cdt) * F.silu(z.float()).to(cdt)
     out = torch.matmul(y, p["out_proj"].to(cdt))
@@ -199,10 +251,14 @@ def mamba_step(p: dict, x: torch.Tensor, state: dict, cfg):
     xin1 = F.silu(conv.float()).to(cdt)[:, None]                         # (B,1,di)
     new_conv = window[:, 1:]
 
-    a, bx, c = _ssm_params(p, xin1, cfg)                                 # (B,1,di,n)
-    h = a[:, 0] * state["ssm"] + bx[:, 0]                                # (B,di,n)
-    y = torch.einsum("bcn,bn->bc", h, c[:, 0]) \
-        + xin1[:, 0].float() * p["d_skip"].float()
+    if _on_kernel(xin1, cfg):
+        y, h = _kernel_scan(p, xin1, state["ssm"], cfg)
+        y = y[:, 0]
+    else:
+        a, bx, c = _ssm_params(p, xin1, cfg)                             # (B,1,di,n)
+        h = a[:, 0] * state["ssm"] + bx[:, 0]                            # (B,di,n)
+        y = torch.einsum("bcn,bn->bc", h, c[:, 0])
+    y = y + xin1[:, 0].float() * p["d_skip"].float()
     y = y.to(cdt) * F.silu(z[:, 0].float()).to(cdt)
     out = torch.matmul(y, p["out_proj"].to(cdt))[:, None]
     return out, {"conv": new_conv.to(state["conv"].dtype), "ssm": h}
