@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from portbench import flops, harness
-from portbench.reference.model import Reference, float32_matmuls, token_gap
+from portbench.reference.model import float32_matmuls, token_gap
 from portbench.weights import seeded_params
 
 
@@ -97,9 +97,11 @@ def gaps(conf: dict, params: dict, rows: list, control: bool = False) -> dict:
     over ``rows`` ((prompt, served tokens, padded prompt length)): the
     widest gap, the median, and the share more than a tenth of a logit
     below.  With ``control`` the token is the float8 reference's choice
-    at the same position instead."""
-    ref = Reference(conf, params)
-    low = Reference(conf, params, fp8=True) if control else None
+    at the same position instead.  The reference is the configuration's
+    architecture module's."""
+    arch = harness.architecture(conf)
+    ref = arch.Reference(conf, params)
+    low = arch.Reference(conf, params, fp8=True) if control else None
     every = []
     with float32_matmuls(), torch.no_grad():
         for prompt, served, plen in rows:
@@ -118,6 +120,14 @@ def gaps(conf: dict, params: dict, rows: list, control: bool = False) -> dict:
     return {"token_gap": max(every), "token_gap_median": float(np.median(every)),
             "token_miss_share": float(np.mean(np.asarray(every) > 0.1)),
             "tokens": len(every)}
+
+
+def _failed(attempted: int, done: list) -> int:
+    """Of ``attempted`` requests, those whose answer never came, or stopped
+    short of its count without the end token (``done``: (prompt, answer,
+    padded length, ttft, count asked))."""
+    return attempted - sum(bool(len(s) == k or (0 < len(s) < k and s[-1] == 1))
+                           for _, s, _, _, k in done)
 
 
 def run(cell) -> harness.Outcome:
@@ -153,10 +163,7 @@ def run(cell) -> harness.Outcome:
                 if rid in answers:
                     done.append((p, answers[rid], plen, ttft, k))
 
-    # an answer that never came, or stopped short of its count without
-    # the end token, fails
-    failed = attempted - sum(len(s) == k or (0 < len(s) < k and s[-1] == 1)
-                             for _, s, _, _, k in done)
+    failed = _failed(attempted, done)
     tokens = sum(len(p) + len(s) for p, s, _, _, _ in done)
     ttfts = [r[3] for r in done]
     rng = np.random.default_rng([cell.seed, 2])

@@ -15,6 +15,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -57,8 +58,18 @@ def workload(name: str, root: str = ROOT) -> dict:
     return _load(os.path.join(bench_dir(root), "workloads", f"{name}.json"))
 
 
-def config(name: str, root: str = ROOT) -> dict:
-    return _load(os.path.join(bench_dir(root), "configs", f"{name}.json"))
+class Configuration(dict):
+    """A configuration file's keys, and the benchmark root it was read from,
+    where its architecture module is found."""
+
+    def __init__(self, keys: dict, root: str):
+        super().__init__(keys)
+        self.root = root
+
+
+def config(name: str, root: str = ROOT) -> Configuration:
+    return Configuration(_load(os.path.join(bench_dir(root), "configs", f"{name}.json")),
+                         root)
 
 
 def _module(path: str, name: str):
@@ -78,7 +89,26 @@ def metric_reader(name: str, root: str = ROOT):
                    "portbench_metric_" + name.replace(".", "_"))
 
 
-# published config.json keys -> the program's ModelConfig fields
+def architecture(conf: dict):
+    """The plain-reference module that speaks for ``conf``'s architecture
+    (the contract is in ``reference/__init__.py``): ``reference/<stem>.py``
+    of the root the configuration was read from, ``stem`` its
+    ``reference`` key, ``model`` without one.  A dict not read by
+    ``config`` takes this checkout's root."""
+    stem = conf.get("reference", "model")
+    path = os.path.join(bench_dir(getattr(conf, "root", ROOT)), "reference", f"{stem}.py")
+    if not (isinstance(stem, str) and stem.isidentifier() and os.path.isfile(path)):
+        raise ValueError(f"{conf.get('name')}: no reference module {stem!r} ({path})")
+    return _reference(path, stem)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(path: str, stem: str):
+    return _module(path, f"portbench_reference_{stem}")
+
+
+# published config.json keys -> the program's ModelConfig fields, for any
+# architecture that has them
 _PUBLISHED = {
     "hidden_size": "d_model", "num_attention_heads": "n_heads",
     "num_key_value_heads": "n_kv_heads", "head_dim": "d_head",
@@ -94,25 +124,19 @@ _PUBLISHED = {
 def model_config(conf: dict):
     """The program's ModelConfig for a configuration file: its arch with
     the file's overrides, checked against the file's published keys and
-    its layer kinds, so the program runs what the file states."""
+    dtype, then by its architecture module (``check_program``), so the
+    program runs what the file states."""
     from repro_torch.configs import get_config
-    from portbench.reference.model import layer_kinds, period
+    arch = architecture(conf)
     cfg = dataclasses.replace(get_config(conf["arch"]), **conf.get("overrides", {}))
     for key, field in _PUBLISHED.items():
         if key in conf and getattr(cfg, field) != conf[key]:
             raise ValueError(f"{conf['name']}: {key}={conf[key]} but the program "
                              f"runs {field}={getattr(cfg, field)}")
-    if "mamba_dt_rank" in conf and cfg.d_model // 16 != conf["mamba_dt_rank"]:
-        raise ValueError(f"{conf['name']}: the program's dt rank is d_model // 16")
-    if conf["model_type"] == "qwen3" and not cfg.qk_norm:
-        raise ValueError(f"{conf['name']}: qwen3 normalises q and k; the program does not")
     if conf.get("dtype", "bfloat16") != cfg.dtype:
         raise ValueError(f"{conf['name']}: dtype {conf.get('dtype')} but the "
                          f"program computes in {cfg.dtype}")
-    program = [(p.mixer, p.ffn) for p in cfg.pattern] * cfg.n_groups
-    if program != layer_kinds(conf) or len(cfg.pattern) != period(conf):
-        raise ValueError(f"{conf['name']}: the program's layers {program} are "
-                         f"not the published {layer_kinds(conf)}")
+    arch.check_program(conf, cfg)
     return cfg
 
 

@@ -1,4 +1,6 @@
-"""Plain float32 forward passes of the benchmarked architectures.
+"""Plain float32 forward passes of qwen3 and jamba, the architecture module
+of every configuration file without a ``reference`` key (the contract is in
+``reference/__init__.py``), and the module the shared helpers live in.
 
 Written from the configurations' published keys (``configs/*.json``) and
 from the architecture the port runs, with plain ``torch`` operations:
@@ -57,6 +59,81 @@ def period(conf: dict) -> int:
     n = len(kinds)
     return next(p for p in range(1, n + 1)
                 if n % p == 0 and kinds == kinds[:p] * (n // p))
+
+
+def check_program(conf: dict, cfg) -> None:
+    """Raises where the program's ModelConfig ``cfg`` departs from the
+    file: jamba's dt rank, qwen3's q and k norms, the layer kinds."""
+    if "mamba_dt_rank" in conf and cfg.d_model // 16 != conf["mamba_dt_rank"]:
+        raise ValueError(f"{conf['name']}: the program's dt rank is d_model // 16")
+    if conf["model_type"] == "qwen3" and not cfg.qk_norm:
+        raise ValueError(f"{conf['name']}: qwen3 normalises q and k; the program does not")
+    program = [(p.mixer, p.ffn) for p in cfg.pattern] * cfg.n_groups
+    if program != layer_kinds(conf) or len(cfg.pattern) != period(conf):
+        raise ValueError(f"{conf['name']}: the program's layers {program} are "
+                         f"not the published {layer_kinds(conf)}")
+
+
+# -- model FLOPs ---------------------------------------------------------
+#
+# The products of the model's matrices at the experts a token is routed to
+# (top-k, not the capacity the program computes), and attention's two
+# score products over the whole context (PaLM, appendix B: 6N + 12 L H Q T
+# a trained token; a forward is a third of it).  N counts the layers'
+# matrices and the unembedding, not the embedding lookup, the norms or the
+# convolution; recomputation is not counted.
+
+def _dims(conf: dict) -> dict:
+    d, H = conf["hidden_size"], conf["num_attention_heads"]
+    return {"d": d, "H": H, "KV": conf["num_key_value_heads"],
+            "Dh": conf.get("head_dim") or d // H, "f": conf["intermediate_size"],
+            "V": conf["vocab_size"], "E": conf.get("num_experts", 1),
+            "K": conf.get("num_experts_per_tok", 1),
+            "di": conf.get("mamba_expand", 0) * d, "n": conf.get("mamba_d_state", 0),
+            "R": conf.get("mamba_dt_rank", 0)}
+
+
+def mixer_params(conf: dict, mixer: str) -> int:
+    s = _dims(conf)
+    if mixer == "attn":
+        return s["d"] * (2 * s["H"] + 2 * s["KV"]) * s["Dh"]
+    di = s["di"]
+    return s["d"] * 2 * di + di * (s["R"] + 2 * s["n"]) + s["R"] * di + di * s["d"]
+
+
+def ffn_params(conf: dict, ffn: str, active: bool = True) -> int:
+    """A dense FFN's matrices, or a MoE's router and its experts (the
+    top-k a token reaches when ``active``, else all)."""
+    s = _dims(conf)
+    one = 3 * s["d"] * s["f"]
+    if ffn == "dense":
+        return one
+    return s["d"] * s["E"] + (s["K"] if active else s["E"]) * one
+
+
+def active_matrix_params(conf: dict) -> int:
+    """The layers' matrices a token runs through."""
+    return sum(mixer_params(conf, m) + ffn_params(conf, f)
+               for m, f in layer_kinds(conf))
+
+
+def attention_layers(conf: dict) -> int:
+    return sum(m == "attn" for m, _ in layer_kinds(conf))
+
+
+def train_flops_per_token(conf: dict, seq_len: int) -> int:
+    s = _dims(conf)
+    n = active_matrix_params(conf) + s["d"] * s["V"]
+    return 6 * n + 12 * attention_layers(conf) * s["H"] * s["Dh"] * seq_len
+
+
+def prefill_flops(conf: dict, prompt_len: int) -> int:
+    """One request's prefill: its prompt through the layers, attention over
+    the prompt, and the logits of its last position."""
+    s = _dims(conf)
+    T = prompt_len
+    return (2 * active_matrix_params(conf) * T + 2 * s["d"] * s["V"]
+            + 4 * attention_layers(conf) * s["H"] * s["Dh"] * T * T)
 
 
 @contextlib.contextmanager

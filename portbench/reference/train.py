@@ -1,13 +1,14 @@
 """One plain float32 training step after another, as the trainer defines it.
 
-Each step: the mean next-token cross-entropy (``model.Reference.loss``)
-and its float32 gradients by autograd; where gradients are compressed,
-the int8 error-feedback quantizer over each leaf (per-tensor amax, scale
-amax / 127 or 1 for a zero leaf, rounding half to even, the residual kept
-in bfloat16 as the configuration stores it); the clip to a global norm
-of 1; AdamW (b1 0.9, b2 0.95, eps 1e-8, decoupled weight decay 0.1) at
-the warm-up-then-cosine rate of step ``count``.  Written from those
-definitions, not from the program's functions.
+Each step: the mean next-token cross-entropy (``Reference.loss`` of the
+configuration's architecture module) and its float32 gradients by
+autograd; where gradients are compressed, the int8 error-feedback
+quantizer over each leaf (per-tensor amax, scale amax / 127 or 1 for a
+zero leaf, rounding half to even, the residual kept in bfloat16 as the
+configuration stores it); the clip to a global norm of 1; AdamW (b1 0.9,
+b2 0.95, eps 1e-8, decoupled weight decay 0.1) at the warm-up-then-cosine
+rate of step ``count``.  Written from those definitions, not from the
+program's functions.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import math
 
 import torch
 
-from .model import Reference, flatten, float32_matmuls, unflatten
+from portbench import harness
+
+from .model import flatten, float32_matmuls, unflatten
 
 B1, B2, EPS, WEIGHT_DECAY, CLIP = 0.9, 0.95, 1e-8, 0.1, 1.0
 
@@ -47,6 +50,7 @@ def train_steps(conf: dict, params0: dict, batches: list, *, peak_lr: float,
     targets) pairs of int64 tensors).  Returns each step's loss, each leaf's
     norm of the first raw gradient and of the first gradient as the
     optimizer gets it, and of the parameters' change after the last step."""
+    Reference = harness.architecture(conf).Reference
     p0 = {k: v.detach().float() for k, v in flatten(params0).items()}
     p = {k: v.clone() for k, v in p0.items()}
     m = {k: torch.zeros_like(v) for k, v in p.items()}

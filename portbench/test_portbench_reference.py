@@ -1,5 +1,6 @@
 """The yardstick against the program at a reduced size on the CPU: the
-FLOP arithmetic against ``FlopCounterMode``, and both plain references
+FLOP arithmetic against ``FlopCounterMode`` and against the counts the
+benchmark's configurations have always had, and both plain references
 (forward, prefill and decode through the cache, a train step) against
 the port in float32."""
 
@@ -84,6 +85,36 @@ def test_flops_match_flop_counter_mode_under_no_remat(arch, model_type):
     with FlopCounterMode(display=False) as fc, torch.no_grad():
         model.prefill(params, {"tokens": batch["tokens"]}, S + 4)
     assert fc.get_total_flops() == flops.prefill_flops(conf, S) * B + _program_extra(cfg, False)
+
+
+# each configuration's layer kinds, period, prefill FLOPs at prompts of
+# 258, 510, 1056 and 2016 tokens and trained-token FLOPs at 512, as the
+# harness counted them before the architecture modules took the count over
+J = [("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"), ("mamba", "moe"),
+     ("attn", "dense"), ("mamba", "moe"), ("mamba", "dense"), ("mamba", "moe")]
+GOLDEN = {
+    "qwen3-8b-depth1": ([("attn", "dense")], 1,
+                        [101891244032, 202302881792, 427000070144, 845759381504],
+                        4916772864),
+    "qwen3-8b": ([("attn", "dense")] * 36, 1,
+                 [3624521695232, 7239340654592, 15328439435264, 30403774644224],
+                 46314553344),
+    "jamba-v0.1-52b": (J, 8,
+                       [1493885321216, 2954610409472, 6126653407232, 11727559196672],
+                       18987614208),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_each_configuration_keeps_its_layers_and_flop_counts(name):
+    from portbench import harness
+    kinds, period, prefill, train = GOLDEN[name]
+    conf = harness.config(name)
+    harness.model_config(conf)
+    arch = harness.architecture(conf)
+    assert arch.layer_kinds(conf) == kinds and arch.period(conf) == period
+    assert [flops.prefill_flops(conf, L) for L in (258, 510, 1056, 2016)] == prefill
+    assert flops.train_flops_per_token(conf, 512) == train
 
 
 @pytest.mark.parametrize("arch,model_type", ARCHS)

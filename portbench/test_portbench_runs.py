@@ -1,9 +1,10 @@
 """Whole runs of the harness on the CPU at a small size: every cell's
 driver, its check and its readers, with the look for a chip skipped.  A
 sound run comes out correct under each cell's own limits; each fault the
-cell can have, and the float8 control, come out not correct; a cell and a
-metric added as new files run."""
+cell can have, and the float8 control, come out not correct; a cell, a
+metric and an architecture added as new files run."""
 
+import hashlib
 import json
 import shutil
 from pathlib import Path
@@ -153,6 +154,126 @@ def test_a_cell_and_a_metric_added_as_new_files_run(small_root, tmp_path):
     assert r["correct"] and r["metrics"]["dummy_requests"]["value"] >= 4
     assert set(r["metrics"]) == {"dummy_requests"}     # the others name their cells
     assert r["breakdown"]["idle_gaps"]
+
+
+# A probe architecture: qwen3's layers under a model_type of its own, with
+# its own module, layer check and FLOP count (which keeps the prompt
+# lengths it was asked for); its logits of token 0 moved by SHIFT.
+PROBE = """
+from portbench.reference import model
+
+SHIFT = {shift}
+PREFILLS = []
+
+
+def _qwen3(conf):
+    return dict(conf, model_type="qwen3")
+
+
+def layer_kinds(conf):
+    return [("attn", "dense")] * conf["num_hidden_layers"]
+
+
+def period(conf):
+    return 1
+
+
+def check_program(conf, cfg):
+    model.check_program(_qwen3(conf), cfg)
+
+
+def prefill_flops(conf, prompt_len):
+    PREFILLS.append(prompt_len)
+    return model.prefill_flops(_qwen3(conf), prompt_len)
+
+
+def train_flops_per_token(conf, seq_len):
+    return model.train_flops_per_token(_qwen3(conf), seq_len)
+
+
+class Reference(model.Reference):
+    def __init__(self, conf, params, fp8=False):
+        super().__init__(_qwen3(conf), params, fp8)
+
+    def logits(self, h):
+        out = super().logits(h)
+        out[..., 0] += SHIFT
+        return out
+"""
+
+
+def _hashes(root: Path) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def _add_probe(root: Path, shift: float) -> None:
+    """The probe as new files of ``root``: its module, a configuration that
+    names it, a serving cell on it, and their entries in BENCHMARK.json."""
+    (root / "portbench/reference/probe.py").write_text(PROBE.format(shift=shift))
+    conf = harness.config("qwen3-8b", str(root))
+    conf.update(name="probe", model_type="probe", reference="probe")
+    (root / "portbench/configs/probe.json").write_text(json.dumps(conf))
+    wl = dict(harness.workload(SERVE, str(root)), config="probe")
+    (root / "portbench/workloads/probe.waves.json").write_text(json.dumps(wl))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "probe", "source": conf["source"],
+                            "file": "portbench/configs/probe.json", "reduced": [],
+                            "why": "a probe architecture"})
+    spec["workloads"].append({"name": "probe.waves", "config": "probe", "traffic": "waves",
+                              "chips": 1, "why": "a cell on the probe"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if SERVE in m.get("workloads", []):
+            m["workloads"].append("probe.waves")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+
+@pytest.mark.parametrize("shift", [0.0, 100.0])
+def test_an_architecture_added_as_new_files_runs_on_its_own_reference(small_root, tmp_path,
+                                                                       shift):
+    root = tmp_path / "root"
+    shutil.copytree(small_root, root)
+    before = _hashes(root)
+    old_spec = harness.spec(str(root))
+    _add_probe(root, shift)
+    r = harness.run_cell("probe.waves", SEED, 1.0, shift == 0, device="cpu", root=str(root))
+    probe = harness.architecture(harness.config("probe", str(root)))
+    assert probe.__file__ == str(root / "portbench/reference/probe.py")
+    assert probe.PREFILLS                       # the driver counted with the probe's FLOPs
+    assert r["correct"] == (shift == 0), r["checks"]
+    if shift == 0:
+        assert r["metrics"]["prefill_mfu"]["value"] > 0
+    after = _hashes(root)
+    assert {k: after[k] for k in before if k != "BENCHMARK.json"} == \
+        {k: v for k, v in before.items() if k != "BENCHMARK.json"}
+    spec = harness.spec(str(root))
+    for key in ("configs", "workloads"):
+        assert spec[key][:-1] == old_spec[key]
+
+
+def test_a_configuration_naming_a_missing_reference_module_is_refused(small_root, tmp_path):
+    root = tmp_path / "root"
+    shutil.copytree(small_root, root)
+    path = root / "portbench/configs/qwen3-8b.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()), reference="deepseek_v2")))
+    with pytest.raises(ValueError, match="deepseek_v2"):
+        harness.make_cell(SERVE, SEED, 1.0, False, "cpu", str(root))
+
+
+def test_a_request_that_stops_on_its_end_token_has_not_failed(small_root, monkeypatch):
+    """Every slot ends at its first decode step (the end token 1), short of
+    its count: the answers are numpy arrays, and ``failed`` stays an int
+    the result line can carry."""
+    import repro_torch.serve.engine as engine
+    monkeypatch.setattr(engine, "sample_logits",
+                        lambda logits, generator=None, temperature=0.0:
+                        torch.ones(logits.shape[0], dtype=torch.int32))
+    r = _run(small_root, SERVE)
+    assert r["failed"] == 0 and type(r["failed"]) is int
+    assert json.loads(json.dumps(r))["attempted"] == r["attempted"] > 0
+    assert serve_waves._failed(2, [(None, np.array([7, 1], np.int32), 0, 0.0, 4),
+                                   (None, np.array([7], np.int32), 0, 0.0, 4)]) == 1
 
 
 def test_the_yardstick_orders_batches_as_the_pipeline_serves_them(tmp_path):
