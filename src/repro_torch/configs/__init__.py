@@ -31,6 +31,7 @@ ARCHS = {
     "seamless-m4t-medium": "seamless_m4t_medium",
     "paligemma-3b": "paligemma_3b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "deepseek-v2-lite": "deepseek_v2_lite",          # the port's own
 }
 
 
@@ -71,16 +72,31 @@ def shapes_for(cfg: ModelConfig) -> list[ShapeSpec]:
     return out
 
 
+def _short_pattern(pattern: tuple) -> tuple:
+    """``pattern`` with each run of equal consecutive entries cut to two:
+    a one-group stack of leading layers and a long run (DeepSeek-V2's dense
+    first layer, then 26 MoE layers) keeps one of the first and two of the
+    run; every other pattern has no run longer than one."""
+    out: list = []
+    for p in pattern:
+        if not (len(out) >= 2 and out[-1] == out[-2] == p):
+            out.append(p)
+    return tuple(out)
+
+
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke variant: tiny dims, same structure (pattern incl. MoE /
-    local-global / mamba-attn interleave, softcaps, prefix, enc-dec)."""
+    local-global / mamba-attn interleave, softcaps, prefix, enc-dec,
+    latent attention, YaRN, shared-expert width over the experts')."""
     # keep the GQA group structure but cap the ratio at 4
     n_kv = min(cfg.n_kv_heads, 2)
     n_heads = n_kv * min(cfg.n_heads // cfg.n_kv_heads, 4)
+    pattern = _short_pattern(cfg.pattern)
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",
-        n_layers=len(cfg.pattern) * min(cfg.n_groups, 2),
+        pattern=pattern,
+        n_layers=len(pattern) * min(cfg.n_groups, 2),
         d_model=64,
         n_heads=n_heads,
         n_kv_heads=n_kv,
@@ -88,7 +104,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         d_ff=128,
         d_ff_expert=96 if cfg.n_experts else None,
         vocab=512,
-        n_experts=min(cfg.n_experts, 4),
+        n_experts=min(cfg.n_experts, max(4, 2 * cfg.experts_per_token)),
+        d_ff_shared=cfg.d_ff_shared and 96 * cfg.d_ff_shared // cfg.d_ff_expert,
+        kv_lora_rank=min(cfg.kv_lora_rank, 32),
+        qk_nope_dim=min(cfg.qk_nope_dim, 16),
+        qk_rope_dim=min(cfg.qk_rope_dim, 8),
         rwkv_head_dim=16,
         rwkv_decay_lora=8,
         ssm_state=8,

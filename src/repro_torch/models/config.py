@@ -4,8 +4,12 @@ The layer stack is expressed as a repeating ``pattern`` of ``(mixer, ffn)``
 pairs (see model.py): the pattern is unrolled inside one "group", and the
 groups run one after another over group-stacked parameters, so
 heterogeneous stacks (gemma2 local/global, jamba 1:7 mamba:attn with
-alternating MoE) share one group function.  A copy of the reference's
-``repro/models/config.py``, field for field.
+alternating MoE) share one group function; a stack with leading layers of
+their own (DeepSeek-V2's dense first layer) is one group of its whole
+depth.  A copy of the reference's ``repro/models/config.py``, field for
+field, plus the port's own fields (latent attention, YaRN, the DeepSeekMoE
+gates and shared width), whose defaults leave every architecture of the
+reference as it is.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ __all__ = ["ModelConfig", "LayerPattern"]
 
 @dataclasses.dataclass(frozen=True)
 class LayerPattern:
-    mixer: str = "attn"       # attn | local | mamba | rwkv
+    mixer: str = "attn"       # attn | local | mla | mamba | rwkv
     ffn: str = "dense"        # dense | moe | none (rwkv channel-mix is its own)
 
 
@@ -42,10 +46,26 @@ class ModelConfig:
     attn_softcap: float = 0.0      # gemma2: 50.0
     final_softcap: float = 0.0     # gemma2: 30.0
     rope_theta: float = 10000.0
+    # YaRN (DeepSeek-V2): inv_freq blended between theta's and theta's
+    # over ``yarn_factor`` by a ramp over the correction dims of
+    # ``yarn_original_len`` positions; 0 = plain RoPE
+    yarn_factor: float = 0.0
+    yarn_original_len: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     local_window: int = 0          # sliding-window size for "local" mixers
     norm_eps: float = 1e-6
     post_norm: bool = False        # gemma2: post-ffn/attn extra norms
     embed_scale: bool = False      # gemma: x *= sqrt(d_model)
+
+    # --- latent attention ("mla" mixers; DeepSeek-V2): keys and values
+    # from a kv_lora_rank latent, queries and keys of qk_nope_dim + the
+    # qk_rope_dim rotary part shared by all heads, values d_head wide
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
 
     # --- layer pattern (repeated n_layers // len(pattern) times)
     pattern: tuple = (LayerPattern(),)
@@ -57,6 +77,8 @@ class ModelConfig:
     d_ff_expert: Optional[int] = None
     capacity_factor: float = 1.25
     shared_expert: bool = False
+    d_ff_shared: Optional[int] = None      # the shared expert's width (default the experts')
+    norm_topk_prob: bool = True            # the k gates renormalised over their sum
     router_aux_weight: float = 0.01
     router_z_weight: float = 0.001
 

@@ -38,7 +38,7 @@ from ..parallel.actctx import constrain, tp_size, write_slots
 from ..parallel.meshed import attention_core
 from .specs import ParamSpec
 
-__all__ = ["rms_norm", "norm_specs", "rope", "attn_specs", "attention",
+__all__ = ["rms_norm", "norm_specs", "rope", "attn_specs", "attend", "attention",
            "ffn_specs", "ffn", "recompute"]
 
 
@@ -87,13 +87,16 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6,
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding in float32.  x: (B, S, H, D) (D even), positions:
-    (B, S)."""
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         freqs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotary embedding in float32, the halves rotated (NeoX).  x: (B, S,
+    H, D) (D even), positions: (B, S); ``freqs`` (D/2,) float32 in place
+    of theta's (YaRN's blend)."""
     half = x.shape[-1] // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
-                      exps)
+    if freqs is None:
+        exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+        freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
+                          exps)
     ang = positions[..., None].float() * freqs                  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -189,6 +192,38 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.unflatten(-1, (h, dk))
 
 
+def attend(q, k, v, q_pos, k_pos, *, mode: str, window: int, prefix_len: int,
+           q_chunk: int, softcap: float, scale: float) -> torch.Tensor:
+    """Every query of q (B, S, H, Dk) against every key of k (B, T, KV, Dk)
+    under ``mode``'s mask, as float32 scores and an explicit softmax;
+    values v (B, T, KV, Dv).  Returns (B, S, H, Dv) float32.  With
+    ``q_chunk`` dividing S, the queries go a chunk at a time."""
+    S = q.shape[1]
+
+    def full_pass(q5, k, v, q_pos, k_pos):
+        if q_chunk and S > q_chunk and S % q_chunk == 0:
+            # flash-style: a bias a chunk, so no (S, S) mask
+            # materializes; each chunk recomputed in the backward, so
+            # no (c, T) scores are kept
+            def step(qq, pp, k, v, k_pos):
+                bb = _mask_bias(mode, pp, k_pos, window=window,
+                                prefix_len=prefix_len)               # (B,c,T)
+                return _scores_softmax_values(qq, k, v, bb, softcap, scale)
+
+            out = torch.empty(q5.shape[:-1] + v.shape[-1:], dtype=torch.float32,
+                              device=q5.device)
+            for lo in range(0, S, q_chunk):
+                hi = lo + q_chunk
+                out[:, lo:hi] = recompute(step, q5[:, lo:hi],
+                                          q_pos[:, lo:hi], k, v, k_pos)
+            return out
+        bias = _mask_bias(mode, q_pos, k_pos, window=window,
+                          prefix_len=prefix_len)                     # (B,S,T)
+        return _scores_softmax_values(q5, k, v, bias, softcap, scale)
+
+    return attention_core(full_pass, q, k, v, (q_pos, k_pos), (("dp",), ("dp",)))
+
+
 def attention(p: dict, x: torch.Tensor, cfg, *,
               mode: str = "causal",
               positions: Optional[torch.Tensor] = None,
@@ -270,30 +305,9 @@ def attention(p: dict, x: torch.Tensor, cfg, *,
     else:
         k_pos_full = positions if kv_input is None else torch.arange(
             k.shape[1], dtype=torch.int32, device=x.device)[None].expand(B, -1)
-
-        def full_pass(q5, k, v, q_pos, k_pos):
-            if q_chunk and S > q_chunk and S % q_chunk == 0:
-                # flash-style: a bias a chunk, so no (S, S) mask
-                # materializes; each chunk recomputed in the backward, so
-                # no (c, T) scores are kept
-                def step(qq, pp, k, v, k_pos):
-                    bb = _mask_bias(mode, pp, k_pos, window=window,
-                                    prefix_len=prefix_len)               # (B,c,T)
-                    return _scores_softmax_values(qq, k, v, bb,
-                                                  cfg.attn_softcap, scale)
-
-                out = torch.empty(q5.shape, dtype=torch.float32, device=q5.device)
-                for lo in range(0, S, q_chunk):
-                    hi = lo + q_chunk
-                    out[:, lo:hi] = recompute(step, q5[:, lo:hi],
-                                              q_pos[:, lo:hi], k, v, k_pos)
-                return out
-            bias = _mask_bias(mode, q_pos, k_pos, window=window,
-                              prefix_len=prefix_len)                     # (B,S,T)
-            return _scores_softmax_values(q5, k, v, bias, cfg.attn_softcap, scale)
-
-        out = attention_core(full_pass, q, k, v, (positions, k_pos_full),
-                             (("dp",), ("dp",)))
+        out = attend(q, k, v, positions, k_pos_full, mode=mode, window=window,
+                     prefix_len=prefix_len, q_chunk=q_chunk,
+                     softcap=cfg.attn_softcap, scale=scale)
         if build_cache:
             shape = (B, build_cache, KV, Dh)
             zk = k.new_zeros(shape, dtype=cache_dtype)

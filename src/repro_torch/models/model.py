@@ -6,7 +6,7 @@ loop over the leading ``layers`` dim of the group-stacked parameters (the
 reference scans them).  Parameters are the reference's nested dict, with
 its dotted paths and layouts, passed to every entry point as in the
 reference, so a checkpoint of either package loads into either model by
-name.  The mixers are ``attn``, ``local``, ``mamba`` and ``rwkv``; the
+name.  The mixers are ``attn``, ``local``, ``mla``, ``mamba`` and ``rwkv``; the
 FFNs ``dense``, ``moe`` and RWKV's channel mix; cross attention and the
 encoder (a loop over its groups, the reference scans them) serve the
 encoder-decoder stack, whose ``frames`` (B, T, d) stand in for the
@@ -35,7 +35,9 @@ gradient, so nothing is recomputed there.
 Each attention, Mamba and MoE layer runs inside a ``model.attention``,
 ``model.mamba`` or ``model.moe`` span (:mod:`repro_torch.obs.trace`),
 projections included; a recomputed group opens its spans again, on the
-thread that runs the backward.
+thread that runs the backward.  A latent-attention layer's span carries
+``kind="mla"`` and its ``path``: ``"expand"`` (prefill, training) or
+``"absorb"`` (a decode step, with ``cache_len``, the cache rows read).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from . import layers as L
+from . import mla as MLA
 from . import moe as M
 from . import rwkv as R
 from . import ssm as SSM
@@ -136,6 +139,8 @@ class Model(nn.Module):
             sp["attn"] = L.attn_specs(cfg)
             if cfg.post_norm:
                 sp["post_ln1"] = L.norm_specs(cfg.d_model)
+        elif pe.mixer == "mla":
+            sp["mla"] = MLA.mla_specs(cfg)
         elif pe.mixer == "mamba":
             sp["mamba"] = SSM.mamba_specs(cfg)
         elif pe.mixer == "rwkv":
@@ -252,6 +257,17 @@ class Model(nn.Module):
                     nc["self"] = kv
                 if cfg.post_norm:
                     attn_out = L.rms_norm(sub["post_ln1"], attn_out, cfg.norm_eps)
+                x = x + attn_out
+            elif pe.mixer == "mla":
+                span = {"path": "absorb", "cache_len": cache_pos + 1} if decoding \
+                    else {"path": "expand"}
+                with obs.trace.span("model.attention", cat="model", kind="mla", **span):
+                    attn_out, lat = MLA.mla(
+                        sub["mla"], h, cfg, positions=positions,
+                        cache=lcache.get("latent"), cache_pos=cache_pos,
+                        build_cache=build_cache, q_chunk=cfg.q_chunk)
+                if lat is not None:
+                    nc["latent"] = lat
                 x = x + attn_out
             elif pe.mixer == "mamba":
                 with obs.trace.span("model.mamba", cat="model"):
@@ -435,7 +451,9 @@ class Model(nn.Module):
     def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
                    cache_dtype=torch.bfloat16, device=None):
         """The decode state, stacked over the groups: a KV cache of
-        ``(n_groups, B, max_len, KV, Dh)`` for each attention layer, the
+        ``(n_groups, B, max_len, KV, Dh)`` for each attention layer, a
+        latent cache of ``(n_groups, B, max_len, kv_lora_rank +
+        qk_rope_dim)`` for each latent-attention layer, the
         recurrent state of each RWKV and Mamba layer, and a cross cache of
         ``enc_len`` slots where the decoder cross-attends, on ``device``
         (default: the GPU; raises when there is none)."""
@@ -451,6 +469,9 @@ class Model(nn.Module):
             if pe.mixer in ("attn", "local"):
                 shape = (batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
                 e["self"] = {"k": zeros(shape), "v": zeros(shape)}
+            elif pe.mixer == "mla":
+                e["latent"] = MLA.init_latent_cache(cfg, batch_size, max_len,
+                                                    cache_dtype, device)
             elif pe.mixer == "mamba":
                 e["ssm_state"] = SSM.init_mamba_state(cfg, batch_size, device=device)
             elif pe.mixer == "rwkv":
@@ -484,7 +505,7 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self.embed(params, token)
         positions = None                    # rope's; a recurrence needs none
-        if any(pe.mixer in ("attn", "local") for pe in cfg.pattern):
+        if any(pe.mixer in ("attn", "local", "mla") for pe in cfg.pattern):
             positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                                    device=x.device)
         views, caches = [], []

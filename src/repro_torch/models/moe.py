@@ -1,10 +1,12 @@
-"""Mixture-of-Experts FFN (llama4-scout/maverick top-1, jamba top-2).
+"""Mixture-of-Experts FFN (llama4-scout/maverick top-1, jamba top-2,
+DeepSeekMoE top-6 with shared experts).
 
 The port of ``repro/models/moe.py``: the same *per-row* capacity dispatch,
 op for op.  Every batch row routes its own S tokens:
 
   1. router in float32, softmax, top-k; the k gates renormalised over
-     their sum (at least 1e-9)
+     their sum (at least 1e-9), unless ``norm_topk_prob`` is off
+     (DeepSeek-V2: the softmax's probabilities as they are)
   2. position-in-expert = exclusive cumsum of the expert one-hots over
      the row's (token, k) assignments in token-major order
   3. an assignment past its expert's capacity C drops (Switch semantics,
@@ -13,7 +15,9 @@ op for op.  Every batch row routes its own S tokens:
   4. expert_in = a gather (B, E, C, d); the experts' FFNs as batched
      matmuls in the compute type
   5. combine: each (token, k) reads its slot back, gate-weighted, summed
-     over k; plus the shared expert where the config has one
+     over k; plus the shared expert where the config has one, as wide as
+     a routed one or ``d_ff_shared`` (DeepSeek-V2's 2 shared experts are
+     one SwiGLU of twice the width)
 
 Ties break toward the lower index, as ``jax.lax.top_k`` breaks them: the
 selections are stable sorts (``torch.topk`` promises no order among
@@ -49,10 +53,11 @@ def moe_specs(cfg) -> dict:
         "w_down": ParamSpec((E, f, d), ("experts", "ff", "embed")),
     }
     if cfg.shared_expert:
+        fs = cfg.d_ff_shared or f
         sp["shared"] = {
-            "w_gate": ParamSpec((d, f), ("embed", "ff")),
-            "w_up": ParamSpec((d, f), ("embed", "ff")),
-            "w_down": ParamSpec((f, d), ("ff", "embed")),
+            "w_gate": ParamSpec((d, fs), ("embed", "ff")),
+            "w_up": ParamSpec((d, fs), ("embed", "ff")),
+            "w_down": ParamSpec((fs, d), ("ff", "embed")),
         }
     return sp
 
@@ -116,7 +121,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
                        ("dp", None, None))                             # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_k, idx_k = _top_k(probs, K, largest=True)               # (B,S,K)
-    gate_k = gate_k / torch.clamp_min(gate_k.sum(-1, keepdim=True), 1e-9)
+    if cfg.norm_topk_prob:
+        gate_k = gate_k / torch.clamp_min(gate_k.sum(-1, keepdim=True), 1e-9)
 
     # --- aux losses (Switch): load balance + z-loss
     me = probs.mean(dim=(0, 1))                                        # (E,)
