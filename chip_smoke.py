@@ -46,7 +46,14 @@ runs, failing on the first error:
    eager scan as one chunk and the output einsum) within 1e-5 relative,
    timed by events beside it and the bound, with device microseconds and
    operations a call (the kernel alone) and the decode's host
-   microseconds, and its registers and spills from ``ptxas -v``;
+   microseconds, and its registers and spills from ``ptxas -v``; and the
+   prefill's causal attention kernel at the qwen3-8b and deepseek-v2-lite
+   cells' widest waves (B 8, S 2016, GQA 32 over 8 at 128; S 4032, MLA 16
+   heads at 192 and 128) against its plain version within 1e-5 relative,
+   timed by events beside it, ``scaled_dot_product_attention`` and its
+   bound, with device microseconds and operations a call, registers and
+   spills, and its launches in a prefill and a decode step of both models
+   at full depth (36 and 27, then 0), asserted;
 2. the ``ckpt_pr2`` golden checkpoint from CUDA tensors, in every staging x workers
    mode;
 3. the paper's NanoAOD-like event tree (2M events): bytes from CUDA tensors
@@ -149,10 +156,12 @@ before and after phase 4b's tuned save and its restore,
 zeroed before phase 5's serve run and read after it (the rwkv6 serve
 path), and again around the timed runs of phases 6, 7 and 8 (the dense,
 hybrid and MoE serve paths; of the port's kernels only the hybrid's
-selective scan runs there).  A kernel's ``launches`` in the JSON record
+selective scan and the prefill's attention kernel run there).  A kernel's ``launches`` in the JSON record
 is the sum over phases 3, 3b, 4, 4c, 4e and 4b (the checkpoint kernels),
-phase 5 (qpack, qunpack) or phase 7 (selective_scan); zigzag, unzigzag
-and selective_scan, which replace no Pallas kernel, carry
+phase 5 (qpack, qunpack), phase 6 (flash_attention, asserted at one a
+layer and prefill there and in phase 7) or phase 7 (selective_scan);
+zigzag, unzigzag, selective_scan and flash_attention, which replace no
+Pallas kernel, carry
 ``"port_only": true``.  Each phase prints its seconds.  At the end
 the script stops multiprocessing's forkserver and resource tracker and
 lists its descendants from ``/proc``: if any is still alive after 10 s, or
@@ -1530,6 +1539,123 @@ def phase_selective_scan(torch, K) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 1, continued: the prefill's causal attention
+# ---------------------------------------------------------------------------
+
+# the serve cells' widest waves: (B, S, H, KV, Dqk, Dv)
+FA_SHAPES = {"qwen3": (8, 2016, 32, 8, 128, 128), "deepseek": (8, 4032, 16, 16, 192, 128)}
+FA_RTOL = 1e-5                     # float32, relative Frobenius (the card tests')
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_ROWS, FA_KEYS = 128, 64         # the kernel's query and key tiles
+# (arch, attention layers): one launch each a prefill
+FA_PREFILL_LAUNCHES = {"qwen3-8b": 36, "deepseek-v2-lite": 27}
+
+
+def _fa_flops(B, S, H, dqk, dv) -> tuple:
+    """(FLOPs the kernel executes on the tensor cores, the model's FLOPs)
+    of a causal prefill at positions 0..S-1: every (128-query, 64-key) tile
+    at or below the diagonal, at 2 (Dqk + 3 Dv) a score (the three bf16
+    terms of each probability), against 2 (Dqk + Dv) a causal score."""
+    tiles = sum(min(-(-S // FA_KEYS), (q0 + FA_ROWS - 1) // FA_KEYS + 1)
+                for q0 in range(0, S, FA_ROWS))
+    executed = B * H * tiles * FA_ROWS * FA_KEYS * 2 * (dqk + 3 * dv)
+    return executed, B * H * S * (S + 1) // 2 * 2 * (dqk + dv)
+
+
+def _fa_prefill_launches(torch, K) -> dict:
+    """The kernel's launches in one prefill of 2 x 64 tokens and one
+    decode step of each architecture at full width and depth (bf16 weights
+    drawn on the card): one an attention layer, none in the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    out = {}
+    for arch, want in FA_PREFILL_LAUNCHES.items():
+        model = Model(get_config(arch))
+        params = model.init(torch.Generator(device="cuda").manual_seed(9),
+                            dtype=torch.bfloat16)
+        tok = torch.randint(2, model.cfg.vocab, (2, 64), device="cuda")
+        before = K["flash_attention"].launches
+        with torch.no_grad():
+            logits, cache = model.prefill(params, {"tokens": tok}, 72)
+            prefill = K["flash_attention"].launches - before
+            model.decode_step(params, cache, logits.argmax(-1)[:, None], 64)
+        torch.cuda.synchronize()
+        step = K["flash_attention"].launches - before - prefill
+        assert (prefill, step) == (want, 0), (arch, prefill, step)
+        out[arch] = {"prefill": prefill, "decode_step": step}
+        del model, params, cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_attention(torch, K) -> dict:
+    """The attention kernel against its plain version (``fa.plain``, the
+    kernel's order in PyTorch) at the serve cells' widest waves
+    (``FA_SHAPES``, positions 0..S-1), within ``FA_RTOL``; timed by events
+    beside the plain version, ``scaled_dot_product_attention`` (a yardstick
+    the port never calls) and two bounds at ``BF16_FLOPS``: the FLOPs the
+    kernel executes and the model's causal FLOPs; device microseconds and
+    operations a call from the profiler (the kernel alone, once a call);
+    ``ptxas -v``'s registers and spills; the launches of a prefill and a
+    decode step of qwen3-8b and deepseek-v2-lite, asserted.  Returns the
+    kernel's JSON row."""
+    from repro_torch.kernels import flash_attention as fa
+    kern = K["flash_attention"]
+    row = {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+           "replaces": "src/repro/models/layers.py:_scores_softmax_values",
+           "port_only": True, "launches": 0, "bound_by": "compute",
+           "ptxas": _ptxas(FA_SOURCE)}
+    log(f"phase 1: flash_attention ptxas: {row['ptxas']}")
+    F = torch.nn.functional
+    for label, (B, S, H, KV, dqk, dv) in FA_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(S)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                   for shape in ((B, S, H, dqk), (B, S, KV, dqk), (B, S, KV, dv)))
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+        args = (q, k, v, pos, pos, dqk ** -0.5)
+        got = kern(*args)
+        want = fa.plain(*args)
+        torch.cuda.synchronize()
+        err = _rel(torch, got, want)
+        assert torch.isfinite(got).all() and err < FA_RTOL, (label, err)
+        del got, want
+        before = kern.launches
+        ms = cuda_ms(lambda: kern(*args), 10, 3)
+        assert kern.launches > before
+        plain_ms = cuda_ms(lambda: fa.plain(*args), 1)
+        # SDPA's layout (B, H, S, D), kv heads repeated for GQA
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(H // KV, 2),
+                                                  v.repeat_interleave(H // KV, 2)))
+        try:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=dqk ** -0.5), 10, 3)
+        except RuntimeError as exc:          # a width no backend takes
+            library_ms = f"refused: {str(exc).splitlines()[0][:80]}"
+        del qt, kt, vt
+        us, ops_per_call, names = device_ops_best(lambda: kern(*args), calls=10)
+        assert len(names) == 1 and "flash_attention_kernel" in next(iter(names)) \
+            and 0.9 <= ops_per_call <= 1, (label, names)
+        executed, model_flops = _fa_flops(B, S, H, dqk, dv)
+        bound_ms = executed / BF16_FLOPS * 1e3
+        got = {"shape": [B, S, H, KV, dqk, dv], "max_rel_err": err, "ms": ms,
+               "device_us": us, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "model_bound_ms": model_flops / BF16_FLOPS * 1e3,
+               "executed_tflop_s": executed / (us / 1e6) / 1e12}
+        row[label] = got
+        log(f"phase 1: flash_attention {label} B {B} S {S} H {H}/{KV} D {dqk}/{dv}: rel err "
+            f"{err:.2e}; events {ms:.4f} ms, device {us:.1f} us a call ({ops_per_call:g} ops); "
+            f"bound {bound_ms:.4f} ms executed ({100 * bound_ms / (us / 1e3):.1f} % of it), "
+            f"{got['model_bound_ms']:.4f} ms the model's causal FLOPs; plain {plain_ms:.2f} "
+            f"ms; library {library_ms if isinstance(library_ms, str) else f'{library_ms:.4f} ms'}")
+        del q, k, v, pos, args
+        torch.cuda.empty_cache()
+    row["prefill_launches"] = _fa_prefill_launches(torch, K)
+    log(f"phase 1: flash_attention launches a prefill and a decode step: "
+        f"{row['prefill_launches']}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 2: golden checkpoint from CUDA tensors
 # ---------------------------------------------------------------------------
 
@@ -2859,6 +2985,8 @@ def phase_dense_serve(torch, ops):
     n_tok = sum(len(v) for v in out.values())
     prefill_ms, prefill_med, n_prefill = _span_ms(spans, "serve.prefill")
     decode_ms, decode_med, n_decode = _span_ms(spans, "serve.decode_step")
+    # the attention kernel: once a layer in every prefill, never in a step
+    assert counts["flash_attention"] == cfg.n_layers * n_prefill, (counts, n_prefill)
     # a decode step reads every weight once but the embedding rows it gathers
     weight_bytes = sum(t.numel() * t.element_size() for k, t in leaves.items()
                        if k != "embed")
@@ -2965,6 +3093,9 @@ def phase_family_serve(torch, ops, phase, arch):
     n_mamba = sum(p.mixer == "mamba" for p in cfg.pattern) * cfg.n_groups
     assert counts["selective_scan"] == n_mamba * (n_prefill + n_decode), \
         (counts, n_mamba, n_prefill, n_decode)
+    if arch == "jamba-v0.1-52b":   # the attention kernel: its one attention layer
+        n_attn = sum(p.mixer == "attn" for p in cfg.pattern) * cfg.n_groups
+        assert counts["flash_attention"] == n_attn * n_prefill == n_prefill, counts
     # every expert's weights are read at every step (the dispatch runs
     # each expert's GEMM), so the bound is every weight but the embedding
     weight_bytes = sum(t.numel() * t.element_size() for k, t in leaves.items()
@@ -3494,6 +3625,7 @@ def main() -> int:
         byteshuffle_targets(rows, split, large)
         qpack_targets(rows, split, qpack_large)
         rows.append(phase_selective_scan(torch, ops.KERNELS))
+        rows.append(phase_flash_attention(torch, ops.KERNELS))
         done("phase 1")
         phase_golden(torch, np, tmp)
         done("phase 2")
@@ -3560,6 +3692,7 @@ def main() -> int:
     done("phase 5")
     dense, dense_counts = phase_dense_serve(torch, ops)
     log(f"launches on the dense serve path: {dense_counts}")
+    counts["flash_attention"] = dense_counts["flash_attention"]
     done("phase 6")
     families = {}
     for phase, arch in (("phase 7", "jamba-v0.1-52b"),

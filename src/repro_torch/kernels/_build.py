@@ -59,6 +59,7 @@ _SIGNATURES = {
     "rt_qunpack": [_P, _P, _P, _I64, _I64, _I64, _I],
     "rt_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64,
                           _I64, _I],
+    "rt_flash_attention": [_P] * 6 + [_I64] * 5 + [_I, _I] + [_I64] * 11 + [_F],
 }
 
 _lock = threading.Lock()           # the build and the load

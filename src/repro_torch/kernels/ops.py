@@ -22,6 +22,7 @@ from ..core.precond import _parse
 from .bitshuffle import bitshuffle, bitunshuffle
 from .byteshuffle import byteshuffle, byteunshuffle
 from .delta import delta, undelta
+from .flash_attention import flash_attention
 from .qpack import qpack, qunpack
 from .selective_scan import selective_scan
 from .zigzag import unzigzag, zigzag
@@ -32,12 +33,12 @@ __all__ = ["precondition", "unprecondition_into", "quantize_int8",
 
 # the kernel wrappers, by the name chip_smoke.py reports them under: the
 # eight preconditioners of the checkpoint path, then the serve path's
-# quantizer and the Mamba layer's scan
+# quantizer, the Mamba layer's scan and the prefill's attention
 PRECOND_KERNELS = {fn.__name__: fn for fn in (
     bitshuffle, bitunshuffle, byteshuffle, byteunshuffle, delta, undelta,
     zigzag, unzigzag)}
 KERNELS = {**PRECOND_KERNELS, "qpack": qpack, "qunpack": qunpack,
-           "selective_scan": selective_scan}
+           "selective_scan": selective_scan, "flash_attention": flash_attention}
 
 _FORWARD = {"bitshuffle": bitshuffle, "shuffle": byteshuffle, "delta": delta,
             "zigzag": zigzag}

@@ -19,7 +19,11 @@ between the scores and the mask.  The scores are float32 products, so they
 need TF32 off, PyTorch's default (``torch.backends.cuda.matmul.allow_tf32``).
 Each query chunk's scores and probabilities are recomputed in the backward
 (:func:`recompute`, the reference's ``jax.checkpoint`` of its scan step),
-so no (chunk, T) tensor is kept for it.
+so no (chunk, T) tensor is kept for it.  A causal self-attention prefill
+on the card with autograd off (bf16, head widths the kernel is built for)
+runs instead as one launch of the attention kernel
+(``kernels/flash_attention.py``), which keeps these float32 semantics and
+writes no score to device memory.
 
 The reference's §Perf variants (``PERF_FLAGS``, off by default) take bf16
 operands to float32 sums: products of bf16 values are exact in float32, so
@@ -32,8 +36,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import flash_attention as fa
 from ..parallel.actctx import constrain, tp_size, write_slots
 from ..parallel.meshed import attention_core
 from .specs import ParamSpec
@@ -192,15 +198,38 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.unflatten(-1, (h, dk))
 
 
+def _real_cuda(t: torch.Tensor) -> bool:
+    return t.is_cuda and not is_fake(t)
+
+
+def _on_flash_kernel(q5, k, v, mode: str, window: int, softcap: float) -> bool:
+    """The attention kernel's rule, on what the call observes alone: real
+    CUDA tensors with autograd off, bf16 q, k and v, the causal mask with no
+    window, softcap or bf16-probability variant, self-attention, and head
+    widths the kernel is built for."""
+    return (_real_cuda(q5) and not torch.is_grad_enabled()
+            and q5.dtype == k.dtype == v.dtype == torch.bfloat16
+            and mode == "causal" and not window and not softcap
+            and not PERF_FLAGS["softmax_bf16_probs"] and k.shape[1] == q5.shape[1]
+            and (q5.shape[-1], v.shape[-1]) in fa.WIDTHS)
+
+
 def attend(q, k, v, q_pos, k_pos, *, mode: str, window: int, prefix_len: int,
            q_chunk: int, softcap: float, scale: float) -> torch.Tensor:
     """Every query of q (B, S, H, Dk) against every key of k (B, T, KV, Dk)
     under ``mode``'s mask, as float32 scores and an explicit softmax;
-    values v (B, T, KV, Dv).  Returns (B, S, H, Dv) float32.  With
-    ``q_chunk`` dividing S, the queries go a chunk at a time."""
+    values v (B, T, KV, Dv).  Returns (B, S, H, Dv) float32.  Where
+    :func:`_on_flash_kernel` holds, one launch of the attention kernel
+    (``kernels/flash_attention.py``) over the whole sequence; else the
+    eager core, and with ``q_chunk`` dividing S, the queries go a chunk at
+    a time."""
     S = q.shape[1]
 
     def full_pass(q5, k, v, q_pos, k_pos):
+        if _on_flash_kernel(q5, k, v, mode, window, softcap):
+            out = fa.flash_attention(q5.flatten(2, 3), k, v, q_pos.to(torch.int32),
+                                     k_pos.to(torch.int32), scale)
+            return out.unflatten(2, q5.shape[2:4])
         if q_chunk and S > q_chunk and S % q_chunk == 0:
             # flash-style: a bias a chunk, so no (S, S) mask
             # materializes; each chunk recomputed in the backward, so
